@@ -9,21 +9,40 @@ It imports nothing of JAX. Each phase passes or the script exits nonzero
 without a result line; no phase is caught.
 
 1. The card (nvidia-smi name and power limit), torch and CUDA versions,
-   the kernels' build from pandaseq_tpu_torch/csrc (seconds), and the
-   native host library.
-2. Each CUDA kernel against its plain PyTorch twin on the card, exactly,
-   at B=8192 (the CLI's batch), Lb=O in {256, 384, 512} and num_kmers in
-   {1, 2, 3}: on reads generated by tests/golden/make_data.py (through
-   make_batch and psq_pack4) and on random planes with low-entropy rows.
-   The bitmask is also held against native.cand_mask, the exact host
-   twin. CUDA-event times of each kernel and its twin.
-3. The port CLI end to end with its defaults (simple_bayesian, -k 2,
-   FASTA) on 500,000 generated 2x250 pairs: on the card, then on the
-   native host engine (PANDASEQ_TPU_ENGINE=host). The FASTA outputs are
-   byte-identical and non-empty, the STAT counters equal, and both
-   kernels launched once per dispatched batch; in turns cuda, host,
-   host, cuda. Again on the 200-pair stream with N bases and B-cliffs
-   (the host fix-up path). Pairs/s of both engines.
+   the kernels' build from pandaseq_tpu_torch/csrc (one nvcc per source,
+   in parallel; seconds), and the native host library.
+2. Each CUDA kernel against its plain PyTorch twin on the card at B=8192
+   (the CLI's batch) and Lb=O in {256, 384, 512}, with CUDA-event times
+   of each kernel and its twin:
+   - the sparse path's kmer_frames and cand, exactly, at num_kmers in
+     {1, 2, 3}, on reads generated by tests/golden/make_data.py --fast
+     (through make_batch and psq_pack4) and on random planes with
+     low-entropy rows; the bitmask also against native.cand_mask, the
+     exact host twin;
+   - the dense path's kmer_frames_nt and counts exactly, and shortlist
+     exactly or within SHORTLIST_ULPS on its f32 columns, at num_kmers
+     in {0, 1, 2, 3} and each of the four score kinds, on generated
+     reads with N bases and B-cliffs (make_data.py without --fast) and
+     on random nibble planes with N runs and low-entropy rows;
+     assemble_candidates_nt on the card against native.cand_mask at
+     num_kmers in {1, 2, 3}.
+3. The port CLI end to end against the native host engine
+   (PANDASEQ_TPU_ENGINE=host; the cuda runs pin the device engine with
+   PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
+   byte-identical and non-empty, the STAT/log line sequence equal, and
+   every kernel of the run's path launched once per dispatched batch and
+   the other path's kernels never:
+   - the defaults (simple_bayesian, -k 2) on 500,000 generated 2x250
+     pairs, in turns cuda, host, host, cuda; again on the 200-pair
+     stream with N bases and B-cliffs (the host fix-up path);
+   - -k 0 (the dense path) on the same 500,000 pairs, and -k 0 with
+     -A uparse, ea_util, flash and stitch on 50,000 pairs, each in turns
+     cuda, host, host, cuda; -k 0 on the 200-pair stream;
+   - the engine probe: one unpinned default run on the 200-pair stream
+     with an empty probe cache shows INFO ENGINE with reason probe and
+     the measured host and device ms; its launch check leaves out the
+     probe's own runtime.PROBE_RUNS launches of each sparse kernel.
+   Pairs/s of both engines beside the card's line.
 4. The card's line, the kernels' JSON line, and the result line.
 """
 
@@ -44,14 +63,32 @@ DEVICE = "cuda"
 B = 8192  # phase 2's batch: the CLI's default (pandaseq_tpu/cli/main.py)
 CLI_BATCH = 8192  # the CLI's default batch: one dispatch per batch
 E2E_PAIRS = 500000
+ALGO_PAIRS = 50000
 C = 4
+SL = 8
 SHAPES = (256, 384, 512)  # Lb = O
 READ_SPEC = {256: ("250", "300", "460"), 384: ("380", "400", "700"),
              512: ("450", "500", "850")}  # read length, amplicon range
+SPARSE = ("kmer_frames", "cand")
+DENSE = ("kmer_frames_nt", "counts", "shortlist")
+KERNELS = SPARSE + DENSE
 REPLACES = {"kmer_frames": "pandaseq_tpu/ops/fused2.py:119",
-            "cand": "pandaseq_tpu/ops/pallas_cand.py:117"}
+            "cand": "pandaseq_tpu/ops/pallas_cand.py:117",
+            "kmer_frames_nt": "pandaseq_tpu/ops/fused2.py:108",
+            "counts": "pandaseq_tpu/ops/fused2.py:190",
+            "shortlist": "pandaseq_tpu/ops/fused2.py:267"}
 SOURCES = {"kmer_frames": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
-           "cand": "pandaseq_tpu_torch/csrc/cand.cu"}
+           "cand": "pandaseq_tpu_torch/csrc/cand.cu",
+           "kmer_frames_nt": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
+           "counts": "pandaseq_tpu_torch/csrc/counts.cu",
+           "shortlist": "pandaseq_tpu_torch/csrc/shortlist.cu"}
+# the dense kernel is held to its twin on the f32 score columns within
+# this many ulp (logf of the card against torch.log of the card); the
+# integer columns are exact
+SHORTLIST_ULPS = 2
+# the four score kinds of the dense path, each with its algorithm
+SCORE_ALGOS = {"counts": "simple_bayesian", "ea_util": "ea_util",
+               "flash": "flash", "stitch": "stitch"}
 
 
 def say(*a):
@@ -67,11 +104,21 @@ def card_line():
 
 
 def make_data(prefix, *args):
-    subprocess.run([sys.executable,
-                    os.path.join(ROOT, "tests", "golden", "make_data.py"),
-                    "--out-prefix", prefix, *args],
-                   check=True, capture_output=True, timeout=600)
-    return prefix + "_1.fastq", prefix + "_2.fastq"
+    """Starts tests/golden/make_data.py; returns (process, fastq pair)."""
+    proc = subprocess.Popen([sys.executable,
+                             os.path.join(ROOT, "tests", "golden",
+                                          "make_data.py"),
+                             "--out-prefix", prefix, *args],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    return proc, (prefix + "_1.fastq", prefix + "_2.fastq")
+
+
+def wait_data(started):
+    proc, files = started
+    if proc.wait(timeout=600):
+        raise SystemExit("make_data.py exited %d" % proc.returncode)
+    return files
 
 
 def exact(got, want, what):
@@ -88,6 +135,23 @@ def exact(got, want, what):
         raise SystemExit("%s: kernel != plain on %d rows (max abs err %d)"
                          % (what, bad, err))
     return err
+
+
+def shortlist_err(got, want, what):
+    """The shortlist against its twin: integer columns exact, f32 score
+    columns within SHORTLIST_ULPS; returns (max abs err of the scores,
+    max ulp)."""
+    import torch
+    f32 = list(range(SL, 2 * SL)) + [2 * SL + 3]
+    ints = [c for c in range(2 * SL + 4) if c not in f32]
+    exact(got[:, ints], want[:, ints], what + " integer columns")
+    ulp = int((got[:, f32].to(torch.int64)
+               - want[:, f32].to(torch.int64)).abs().max())
+    if ulp > SHORTLIST_ULPS:
+        raise SystemExit("%s: f32 scores %d ulp from the twin" % (what, ulp))
+    err = float((got[:, f32].view(torch.float32).double()
+                 - want[:, f32].view(torch.float32).double()).abs().max())
+    return err, ulp
 
 
 def cuda_ms(fn, reps):
@@ -114,98 +178,232 @@ def paired_ms(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_kernels(tmp, errs):
-    """Phase 2: kernel == plain twin (and == native.cand_mask) on the
-    card; returns {(kernel, Lb): (ms, plain_ms)}."""
+def say_times(times, names, Lb, k):
+    for name in names:
+        ms, pms = times[(name, Lb)]
+        say("time %s B=%d Lb=O=%d k=%d: kernel %.4f ms, plain %.4f ms "
+            "(CUDA events)" % (name, B, Lb, k, ms, pms))
+
+
+def sparse_kernels(Lb, batch, rng, errs, times):
+    """kmer_frames and cand against their twins (and native.cand_mask)
+    on generated reads and random planes."""
     import numpy as np
     import torch
 
-    from pandaseq_tpu.assembler import make_batch
-    from pandaseq_tpu.io import fastq as fq
     from pandaseq_tpu.io import native
     from pandaseq_tpu_torch.ops import cand, fused2
 
     dev = torch.device(DEVICE)
+    O = Lb
+    plane_r, hasN = native.pack4(batch, Lb)
+    if hasN.any() or len(batch.sids) != B:
+        raise SystemExit("generated batch: %d rows, %d with N"
+                         % (len(batch.sids), int(hasN.sum())))
+    # random planes: a quarter poly-C, a quarter over a 2-code
+    # alphabet (deep k-mer runs: rank drops, count > C lists)
+    plane_x = rng.integers(-128, 128, size=(B, Lb // 2), dtype=np.int8)
+    plane_x[:B // 4] = 0b01010101
+    plane_x[B // 4:B // 2] = rng.choice(
+        np.array([0, 0b01010101], np.int8), size=(B // 4, Lb // 2))
+    cases = [("reads", plane_r, batch.flen, batch.rlen),
+             ("random", plane_x,
+              rng.integers(0, Lb + 1, size=B).astype(np.int32),
+              rng.integers(0, Lb + 1, size=B).astype(np.int32))]
+    for tag, plane_np, fl_np, rl_np in cases:
+        plane = torch.from_numpy(plane_np).to(dev)
+        fl = torch.from_numpy(np.ascontiguousarray(fl_np, np.int32)).to(dev)
+        rlen = torch.from_numpy(np.ascontiguousarray(
+            rl_np, np.int32)).to(dev)
+        for k in (1, 2, 3):
+            what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
+            Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, k)
+            Fp, Rp = fused2.plain_kmer_frames(plane, fl, rlen, Lb, k)
+            errs["kmer_frames"] = max(
+                errs["kmer_frames"], exact(Fk, Fp, what + " Fkm"),
+                exact(Rk, Rp, what + " Rkm"))
+            out = {}
+            for mode in ("list", "mask"):
+                out[mode] = cand.candidates(Fk, Rk, O, mode, C)
+                errs["cand"] = max(errs["cand"], exact(
+                    out[mode], fused2.plain_candidates(Fp, Rp, O, mode, C),
+                    "%s %s" % (what, mode)))
+            torch.cuda.synchronize()
+            over = int((out["list"][:, 0] > C).sum())
+            if tag == "reads":
+                host = torch.from_numpy(native.cand_mask(
+                    batch, np.arange(B, dtype=np.int64), k, O))
+                exact(out["mask"].cpu(), host, what + " vs cand_mask")
+                say("%s: kernels == plain == native.cand_mask, %d rows "
+                    "with candidates, %d with count > %d"
+                    % (what, int((out["list"][:, 0] > 0).sum()), over, C))
+            else:
+                say("%s: kernels == plain, %d rows with count > %d"
+                    % (what, over, C))
+        if tag == "reads":
+            Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
+            times[("kmer_frames", Lb)] = paired_ms(
+                lambda: fused2.plain_kmer_frames(plane, fl, rlen, Lb, 2),
+                lambda: cand.kmer_frames(plane, fl, rlen, Lb, 2))
+            times[("cand", Lb)] = paired_ms(
+                lambda: fused2.plain_candidates(Fk, Rk, O, "list", C),
+                lambda: cand.candidates(Fk, Rk, O, "list", C))
+            say_times(times, SPARSE, Lb, 2)
+
+
+def _score_params():
+    """{score kind: (pmatch, pmismatch)} as the engine passes them."""
+    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    out = {}
+    for kind, name in SCORE_ALGOS.items():
+        cfg = oracle.OracleConfig()
+        cfg.algorithm = oracle.make_algorithm(name, None)
+        asm = BatchAssembler(cfg, device=DEVICE)
+        if asm._algo_kind != kind:
+            raise SystemExit("%s scores as %s" % (name, asm._algo_kind))
+        out[kind] = (asm._pmatch, asm._pmismatch)
+    return out
+
+
+def _nt_random(rng, Lb):
+    """Random nibble planes: an eighth poly-C (every k-mer equal), N
+    runs, degenerate codes, zero tails past random lengths."""
+    import numpy as np
+    codes = np.array([1, 2, 4, 8, 1, 2, 4, 8, 15, 5, 10, 3], np.uint8)
+    fwd = codes[rng.integers(0, len(codes), (B, Lb))]
+    rev = codes[rng.integers(0, len(codes), (B, Lb))]
+    fwd[:B // 8] = 2
+    rev[:B // 8] = 2
+    fwd[B // 8:B // 4, 20:40] = 15
+    rev[B // 4:3 * B // 8, 50:60] = 15
+    flen = rng.integers(0, Lb + 1, B).astype(np.int32)
+    rlen = rng.integers(0, Lb + 1, B).astype(np.int32)
+    pos = np.arange(Lb)[None, :]
+    fwd[pos >= flen[:, None]] = 0
+    rev[pos >= rlen[:, None]] = 0
+    return (fwd | (rev << 4)).view(np.int8), flen, rlen
+
+
+def dense_kernels(Lb, batch, rng, params, errs, times):
+    """kmer_frames_nt, counts and shortlist against their twins, and
+    assemble_candidates_nt against native.cand_mask."""
+    import numpy as np
+    import torch
+
+    from pandaseq_tpu import tables
+    from pandaseq_tpu.io import native
+    from pandaseq_tpu_torch.ops import dense, fused2
+
+    dev = torch.device(DEVICE)
+    O = Lb
+    nn = float(tables.QUAL_NN_SIMPLE_BAYESIAN)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nt_r = batch.nt_packed()[:, :Lb]
+    nt_x, fl_x, rl_x = _nt_random(rng, Lb)
+    zeros = np.zeros(B, np.int32)
+    cases = [("reads", nt_r, batch.flen, batch.rlen, zeros, zeros, 0),
+             ("random", nt_x, fl_x, rl_x,
+              rng.integers(0, 4, B).astype(np.int32),
+              rng.integers(0, 4, B).astype(np.int32), Lb - 56)]
+    for tag, nt_np, fl_np, rl_np, fo_np, ro_np, maxoverlap in cases:
+        nt, fl, rl, fo, ro = map(t, (nt_np, fl_np, rl_np, fo_np, ro_np))
+        for k in (0, 1, 2, 3):
+            what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
+            Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, k)
+            Fp, Rp = fused2.plain_kmer_frames_nt(nt, fl, rl, Lb, k)
+            errs["kmer_frames_nt"] = max(
+                errs["kmer_frames_nt"], exact(Fk, Fp, what + " Fkm"),
+                exact(Rk, Rp, what + " Rkm"))
+            got = dense.counts(nt, Fk, Rk, O)
+            want = fused2.plain_counts(nt, Fp, Rp, O)
+            for g, w, name in zip(got, want, ("m", "unk", "candc")):
+                errs["counts"] = max(errs["counts"],
+                                     exact(g, w, "%s %s" % (what, name)))
+            bands = []
+            for kind, (pm, pmm) in params.items():
+                kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=maxoverlap,
+                          algo_kind=kind, pmatch=pm, pmismatch=pmm, nn=nn,
+                          band=fused2.BAND_COUNTS)
+                sl = dense.shortlist(*got, fl, rl, fo, ro, **kw)
+                err, ulp = shortlist_err(
+                    sl, fused2.plain_shortlist(*want, fl, rl, fo, ro, **kw),
+                    "%s %s" % (what, kind))
+                errs["shortlist"] = max(errs["shortlist"], err)
+                errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
+                bands.append(int((sl[:, 2 * SL + 2] > SL).sum()))
+            say("%s: dense kernels == plain (frames, counts; shortlist of "
+                "%s, rows with n_band > %d: %s)"
+                % (what, "/".join(params), SL, bands))
+        if tag == "reads":
+            rows = np.arange(B, dtype=np.int64)
+            for k in (1, 2, 3):
+                mask = fused2.assemble_candidates_nt(nt, fl, rl, L=Lb,
+                                                     num_kmers=k)
+                exact(mask.cpu(), torch.from_numpy(
+                    native.cand_mask(batch, rows, k, O)),
+                    "Lb=O=%d k=%d assemble_candidates_nt vs cand_mask"
+                    % (Lb, k))
+            say("Lb=O=%d: assemble_candidates_nt == native.cand_mask at "
+                "k=1,2,3 (%d rows with N)" % (Lb, int(
+                    ((batch.nt_packed()[:, :Lb].view(np.uint8) & 0x0F)
+                     == 0x0F).any(axis=1).sum())))
+            Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, 0)
+            got = dense.counts(nt, Fk, Rk, O)
+            pm, pmm = params["counts"]
+            kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=0,
+                      algo_kind="counts", pmatch=pm, pmismatch=pmm, nn=nn,
+                      band=fused2.BAND_COUNTS)
+            times[("kmer_frames_nt", Lb)] = paired_ms(
+                lambda: fused2.plain_kmer_frames_nt(nt, fl, rl, Lb, 0),
+                lambda: dense.kmer_frames_nt(nt, fl, rl, Lb, 0))
+            times[("counts", Lb)] = paired_ms(
+                lambda: fused2.plain_counts(nt, Fk, Rk, O),
+                lambda: dense.counts(nt, Fk, Rk, O))
+            times[("shortlist", Lb)] = paired_ms(
+                lambda: fused2.plain_shortlist(*got, fl, rl, fo, ro, **kw),
+                lambda: dense.shortlist(*got, fl, rl, fo, ro, **kw))
+            say_times(times, DENSE, Lb, 0)
+
+
+def phase_kernels(tmp, errs):
+    """Phase 2: every kernel == its plain twin on the card; returns
+    {(kernel, Lb): (ms, plain_ms)}."""
+    import numpy as np
+
+    from pandaseq_tpu.assembler import make_batch
+    from pandaseq_tpu.io import fastq as fq
+
     rng = np.random.default_rng(11)
+    started = {}
+    for Lb in SHAPES:
+        rl, amin, amax = READ_SPEC[Lb]
+        spec = ("--pairs", str(B), "--seed", str(Lb), "--read-len", rl,
+                "--amp-min", amin, "--amp-max", amax)
+        started[Lb] = (
+            make_data(os.path.join(tmp, "k%d" % Lb), "--fast", *spec),
+            make_data(os.path.join(tmp, "n%d" % Lb), *spec))
+    params = _score_params()
     times = {}
     for Lb in SHAPES:
-        O = Lb
-        rl, amin, amax = READ_SPEC[Lb]
-        f1, f2 = make_data(os.path.join(tmp, "k%d" % Lb), "--fast",
-                           "--pairs", str(B), "--seed", str(Lb),
-                           "--read-len", rl, "--amp-min", amin,
-                           "--amp-max", amax)
-        batch = make_batch(list(fq.read_pairs(f1, f2)), Lb)
-        plane_r, hasN = native.pack4(batch, Lb)
-        if hasN.any() or len(batch.sids) != B:
-            raise SystemExit("generated batch: %d rows, %d with N"
-                             % (len(batch.sids), int(hasN.sum())))
-        # random planes: a quarter poly-C, a quarter over a 2-code
-        # alphabet (deep k-mer runs: rank drops, count > C lists)
-        plane_x = rng.integers(-128, 128, size=(B, Lb // 2),
-                               dtype=np.int8)
-        plane_x[:B // 4] = 0b01010101
-        plane_x[B // 4:B // 2] = rng.choice(
-            np.array([0, 0b01010101], np.int8), size=(B // 4, Lb // 2))
-        cases = [("reads", plane_r, batch.flen, batch.rlen),
-                 ("random", plane_x,
-                  rng.integers(0, Lb + 1, size=B).astype(np.int32),
-                  rng.integers(0, Lb + 1, size=B).astype(np.int32))]
-        for tag, plane_np, fl_np, rl_np in cases:
-            plane = torch.from_numpy(plane_np).to(dev)
-            fl = torch.from_numpy(np.ascontiguousarray(
-                fl_np, np.int32)).to(dev)
-            rlen = torch.from_numpy(np.ascontiguousarray(
-                rl_np, np.int32)).to(dev)
-            for k in (1, 2, 3):
-                what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
-                Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, k)
-                Fp, Rp = fused2.plain_kmer_frames(plane, fl, rlen, Lb, k)
-                errs["kmer_frames"] = max(
-                    errs["kmer_frames"], exact(Fk, Fp, what + " Fkm"),
-                    exact(Rk, Rp, what + " Rkm"))
-                out = {}
-                for mode in ("list", "mask"):
-                    out[mode] = cand.candidates(Fk, Rk, O, mode, C)
-                    errs["cand"] = max(errs["cand"], exact(
-                        out[mode], fused2.plain_candidates(Fp, Rp, O, mode,
-                                                           C),
-                        "%s %s" % (what, mode)))
-                torch.cuda.synchronize()
-                over = int((out["list"][:, 0] > C).sum())
-                if tag == "reads":
-                    host = torch.from_numpy(native.cand_mask(
-                        batch, np.arange(B, dtype=np.int64), k, O))
-                    exact(out["mask"].cpu(), host, what + " vs cand_mask")
-                    say("%s: kernels == plain == native.cand_mask, %d "
-                        "rows with candidates, %d with count > %d"
-                        % (what, int((out["list"][:, 0] > 0).sum()),
-                           over, C))
-                else:
-                    say("%s: kernels == plain, %d rows with count > %d"
-                        % (what, over, C))
-            if tag == "reads":
-                Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
-                times[("kmer_frames", Lb)] = paired_ms(
-                    lambda: fused2.plain_kmer_frames(plane, fl, rlen, Lb,
-                                                     2),
-                    lambda: cand.kmer_frames(plane, fl, rlen, Lb, 2))
-                times[("cand", Lb)] = paired_ms(
-                    lambda: fused2.plain_candidates(Fk, Rk, O, "list", C),
-                    lambda: cand.candidates(Fk, Rk, O, "list", C))
-                for name in ("kmer_frames", "cand"):
-                    ms, pms = times[(name, Lb)]
-                    say("time %s B=%d Lb=O=%d k=2: kernel %.4f ms, plain "
-                        "%.4f ms (CUDA events)" % (name, B, Lb, ms, pms))
+        fast, with_n = (wait_data(s) for s in started[Lb])
+        sparse_kernels(Lb, make_batch(list(fq.read_pairs(*fast)), Lb), rng,
+                       errs, times)
+        dense_kernels(Lb, make_batch(list(fq.read_pairs(*with_n)), Lb), rng,
+                      params, errs, times)
     return times
 
 
 def _norm_log(path):
-    """The log's line sequence with the volatile lines masked (as
-    tests/test_cli.py test_stderr_line_sequence_parity does)."""
+    """(the log's line sequence with the volatile lines masked, as
+    tests/test_cli.py test_stderr_line_sequence_parity does; the INFO
+    ENGINE line)."""
     out = []
+    engine = None
     with open(path, errors="replace") as fh:
         for ln in fh.read().splitlines():
+            if ln.startswith("INFO\tENGINE"):
+                engine = ln
             ln = re.sub(r"0x[0-9a-f]+:\d+\t", "", ln)
             ln = re.sub(r"STAT\tTIME\t.*", "STAT\tTIME\t<t>", ln)
             ln = re.sub(r"STAT\tELAPSED\t\d+", "STAT\tELAPSED\t<e>", ln)
@@ -213,88 +411,155 @@ def _norm_log(path):
                               "INFO\tENGINE")):
                 continue
             out.append(ln)
-    return out
+    return out, engine
 
 
-def run_cli(f1, f2, out_dir, engine, tag):
-    """The port CLI with its defaults on one engine; returns (seconds,
-    reads, launch counts, fasta path, log lines)."""
+def run_cli(f1, f2, out_dir, engine, tag, extra=()):
+    """The port CLI on one engine ("cuda" pins the device engine,
+    "host" the native host engine, None pins nothing); returns
+    (seconds, reads, launch counts, fasta path, log lines, INFO ENGINE
+    line). The launch counts are set to 0 just before the run and read
+    just after it."""
     from pandaseq_tpu_torch.cli.main import main as cli_main
     from pandaseq_tpu_torch.ops import cand
 
     fa = os.path.join(out_dir, tag + ".fa")
     log = os.path.join(out_dir, tag + ".log")
-    if engine == "host":
-        os.environ["PANDASEQ_TPU_ENGINE"] = "host"
-    else:  # unpinned: the device engine
+    os.environ.pop("PANDASEQ_TPU_HOST", None)
+    if engine is None:
         os.environ.pop("PANDASEQ_TPU_ENGINE", None)
+    else:
+        os.environ["PANDASEQ_TPU_ENGINE"] = \
+            "host" if engine == "host" else "tpu"
     cand.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli_main(["-f", f1, "-r", f2, "-w", fa, "-g", log])
+    rc = cli_main(["-f", f1, "-r", f2, "-w", fa, "-g", log, *extra])
     dt = time.perf_counter() - t0
     counts = cand.launch_counts()
     if rc != 0:
         raise SystemExit("port CLI (%s) exited %d" % (engine, rc))
-    lines = _norm_log(log)
+    lines, engine_line = _norm_log(log)
     reads = [int(m.group(1)) for m in
              (re.match(r"STAT\tREADS\t(\d+)$", ln) for ln in lines) if m]
-    return dt, reads[-1], counts, fa, lines
+    return dt, reads[-1], counts, fa, lines, engine_line
+
+
+def expect_counts(path, n_batches):
+    """Each kernel of the run's path once per batch, the others never."""
+    return {name: n_batches if name in path else 0 for name in KERNELS}
+
+
+def compare_engines(label, f1, f2, sub, order, path, card, extra=()):
+    """Runs the CLI in the given engine order; every run's FASTA and
+    log equal the first's. Returns the first cuda run's launch counts."""
+    secs = {"cuda": [], "host": []}
+    ref = None
+    main_counts = None
+    for i, engine in enumerate(order):
+        dt, reads, counts, fa, log, _ = run_cli(
+            f1, f2, sub, engine, "%s%d" % (engine, i), extra)
+        n_batches = math.ceil(reads / CLI_BATCH)
+        want = expect_counts(path if engine == "cuda" else (), n_batches)
+        if counts != want:
+            raise SystemExit("%s: %s run launched %s, expected %s"
+                             % (label, engine, counts, want))
+        if engine == "cuda" and main_counts is None:
+            main_counts = counts
+        if ref is None:
+            ref = (fa, log, reads)
+            if os.path.getsize(fa) == 0:
+                raise SystemExit("%s: empty FASTA" % label)
+        else:
+            if not filecmp.cmp(ref[0], fa, shallow=False):
+                raise SystemExit("%s: %s FASTA differs from %s's"
+                                 % (label, engine, order[0]))
+            if log != ref[1]:
+                raise SystemExit("%s: %s STAT/log line sequence differs "
+                                 "from %s's" % (label, engine, order[0]))
+            os.remove(fa)
+        secs[engine].append(dt)
+    stats = [ln for ln in ref[1] if ln.startswith("STAT\t")
+             and not ln.startswith(("STAT\tTIME", "STAT\tELAPSED",
+                                    "STAT\tOVERLAPS"))][-6:]
+    say("%s: %d pairs, FASTA identical over %d runs (%d bytes), STAT "
+        "equal: %s" % (label, ref[2], len(order), os.path.getsize(ref[0]),
+                       ", ".join(s.split("\t", 1)[1].replace("\t", "=")
+                                 for s in stats)))
+    os.remove(ref[0])
+    rate = {e: ref[2] * len(t) / sum(t) for e, t in secs.items()}
+    say("%s: each cuda run launched %s once per batch (%d); cuda %.1f "
+        "pairs/s (runs %s s), host %.1f pairs/s (runs %s s) on %s"
+        % (label, "/".join(path), math.ceil(ref[2] / CLI_BATCH),
+           rate["cuda"], ", ".join("%.3f" % t for t in secs["cuda"]),
+           rate["host"], ", ".join("%.3f" % t for t in secs["host"]),
+           card))
+    return main_counts
+
+
+def phase_probe(f1, f2, tmp):
+    """The measured engine probe on an empty cache: one unpinned default
+    run. Returns the INFO ENGINE line."""
+    from pandaseq_tpu_torch import runtime
+
+    sub = os.path.join(tmp, "probe")
+    os.makedirs(sub)
+    os.environ["PANDASEQ_TPU_CACHE"] = sub
+    try:
+        _, reads, counts, _, _, line = run_cli(f1, f2, sub, None, "auto")
+    finally:
+        os.environ.pop("PANDASEQ_TPU_CACHE")
+    m = re.match(r"INFO\tENGINE\t(cuda|host) \(probe: host ([\d.]+) ms, "
+                 r"device ([\d.]+) ms\)$", line or "")
+    if m is None:
+        raise SystemExit("unpinned run: no probe on the INFO ENGINE line "
+                         "(%r)" % line)
+    n_batches = math.ceil(reads / CLI_BATCH)
+    want = expect_counts(SPARSE if m.group(1) == "cuda" else (), n_batches)
+    for name in SPARSE:  # the probe's own device-side runs
+        want[name] += runtime.PROBE_RUNS
+    if counts != want:
+        raise SystemExit("unpinned run launched %s, expected %s (the "
+                         "probe's %d runs included)"
+                         % (counts, want, runtime.PROBE_RUNS))
+    if not os.path.exists(os.path.join(sub, runtime.PROBE_CACHE)):
+        raise SystemExit("the probe wrote no cache entry")
+    say("probe: %r; the run launched %s of which %d of each sparse kernel "
+        "were the probe's" % (line, counts, runtime.PROBE_RUNS))
+    return line
 
 
 def phase_e2e(tmp, card):
-    """Phase 3: cuda engine == native host engine, end to end, runs in
-    turns cuda, host, host, cuda on the large stream; returns the launch
-    counts of the first cuda run (the main path's)."""
-    main_counts = None
-    for label, args, order in (
-            ("%d 2x250" % E2E_PAIRS,
-             ("--fast", "--pairs", str(E2E_PAIRS), "--seed", "42"),
-             ("cuda", "host", "host", "cuda")),
-            ("200-pair N/B-cliff", ("--pairs", "200", "--seed", "42"),
-             ("cuda", "host"))):
-        sub = os.path.join(tmp, "e2e%d" % (main_counts is not None))
-        os.makedirs(sub)
-        f1, f2 = make_data(os.path.join(sub, "in"), *args)
-        secs = {"cuda": [], "host": []}
-        ref = None
-        for i, engine in enumerate(order):
-            dt, reads, counts, fa, log = run_cli(f1, f2, sub, engine,
-                                                 "%s%d" % (engine, i))
-            n_batches = math.ceil(reads / CLI_BATCH)
-            want = n_batches if engine == "cuda" else 0
-            if counts != {"kmer_frames": want, "cand": want}:
-                raise SystemExit("%s: %s run launched %s, expected %d of "
-                                 "each" % (label, engine, counts, want))
-            if ref is None:
-                ref = (fa, log, reads)
-                main_counts = main_counts or counts
-                if os.path.getsize(fa) == 0:
-                    raise SystemExit("%s: empty FASTA" % label)
-            else:
-                if not filecmp.cmp(ref[0], fa, shallow=False):
-                    raise SystemExit("%s: %s FASTA differs from cuda's"
-                                     % (label, engine))
-                if log != ref[1]:
-                    raise SystemExit("%s: %s STAT/log line sequence "
-                                     "differs from cuda's" % (label, engine))
-                os.remove(fa)
-            secs[engine].append(dt)
-        stats = [ln for ln in ref[1] if ln.startswith("STAT\t")
-                 and not ln.startswith(("STAT\tTIME", "STAT\tELAPSED",
-                                        "STAT\tOVERLAPS"))][-6:]
-        say("%s: %d pairs, FASTA identical over %d runs (%d bytes), STAT "
-            "equal: %s" % (label, ref[2], len(order),
-                           os.path.getsize(ref[0]),
-                           ", ".join(s.split("\t", 1)[1].replace("\t", "=")
-                                     for s in stats)))
-        rate = {e: ref[2] * len(t) / sum(t) for e, t in secs.items()}
-        say("%s: each cuda run launched both kernels once per batch (%d); "
-            "cuda %.1f pairs/s (runs %s s), host %.1f pairs/s (runs %s s) "
-            "on %s" % (label, math.ceil(ref[2] / CLI_BATCH), rate["cuda"],
-                       ", ".join("%.3f" % t for t in secs["cuda"]),
-                       rate["host"],
-                       ", ".join("%.3f" % t for t in secs["host"]), card))
-    return main_counts
+    """Phase 3: cuda engine == native host engine, end to end; returns
+    the launch counts of the first cuda run of each path (the main
+    paths': the default sparse path and the -k 0 dense path)."""
+    subs = {}
+    started = {}
+    for name, args in (
+            ("big", ("--fast", "--pairs", str(E2E_PAIRS), "--seed", "42")),
+            ("algo", ("--fast", "--pairs", str(ALGO_PAIRS), "--seed", "7")),
+            ("n200", ("--pairs", "200", "--seed", "42"))):
+        subs[name] = os.path.join(tmp, "e2e_" + name)
+        os.makedirs(subs[name])
+        started[name] = make_data(os.path.join(subs[name], "in"), *args)
+    data = {name: wait_data(s) for name, s in started.items()}
+    turns = ("cuda", "host", "host", "cuda")
+    counts = {}
+    counts["sparse"] = compare_engines(
+        "%d 2x250" % E2E_PAIRS, *data["big"], subs["big"], turns, SPARSE,
+        card)
+    compare_engines("200-pair N/B-cliff", *data["n200"], subs["n200"],
+                    ("cuda", "host"), SPARSE, card)
+    counts["dense"] = compare_engines(
+        "%d 2x250 -k 0" % E2E_PAIRS, *data["big"], subs["big"], turns,
+        DENSE, card, ("-k", "0"))
+    for algo in ("uparse", "ea_util", "flash", "stitch"):
+        compare_engines("%d 2x250 -k 0 -A %s" % (ALGO_PAIRS, algo),
+                        *data["algo"], subs["algo"], turns, DENSE, card,
+                        ("-k", "0", "-A", algo))
+    compare_engines("200-pair N/B-cliff -k 0", *data["n200"], subs["n200"],
+                    ("cuda", "host"), DENSE, card, ("-k", "0"))
+    phase_probe(*data["n200"], tmp)
+    return counts
 
 
 def main() -> int:
@@ -326,19 +591,24 @@ def main() -> int:
     say("native host library loaded")
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    errs = {"kmer_frames": 0, "cand": 0}
+    errs = dict.fromkeys(KERNELS, 0)
+    errs["shortlist_ulp"] = 0
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
             as tmp:
         times = phase_kernels(tmp, errs)
+        say("shortlist f32 columns: max %d ulp, max abs err %r from the "
+            "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
         counts = phase_e2e(tmp, card)
 
     kernels = []
-    for name in ("kmer_frames", "cand"):
+    for name in KERNELS:
         ms, pms = times[(name, 256)]
+        path = "sparse" if name in SPARSE else "dense"
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": counts[name], "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": pms})
+                        "launches": counts[path][name],
+                        "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": pms})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,25 +2,34 @@
 
 ``BatchAssembler`` is the JAX package's host engine
 (``pandaseq_tpu.assembler.BatchAssembler``: native decode, ``_pre``,
-the 4-bit packed upload, the native ``psq_finalize``, the pipelines)
-with only its device seams replaced:
+the 4-bit packed or nibble upload plane, the native ``psq_finalize``,
+the oracle replay of undecided pairs, the pipelines) with only its
+device seams replaced:
 
 * ``__init__`` takes ``device=`` and builds the port's tables (the
   parent's imports ``ops.fused2`` and with it JAX);
-* ``_launch`` copies the packed plane and the lengths into pinned host
-  memory, uploads them without blocking, runs the two CUDA kernels
-  (ops/cand.py) on the current stream and starts the copy of the
-  ``[B, 6]`` int16 candidate list back into pinned memory. It returns a
-  ``_PendingList`` whose ``__array__`` waits on a CUDA event: the
-  finalizer only ever sees numpy arrays, never a CUDA tensor;
+* ``_launch`` copies the upload plane and the ``[B]`` arrays into pinned
+  host memory, uploads them without blocking, runs the device step's
+  CUDA kernels on the current stream and starts the copy of the result
+  back into pinned memory. It returns a ``_PendingList`` whose
+  ``__array__`` waits on a CUDA event: the finalizer only ever sees
+  numpy arrays, never a CUDA tensor. The sparse path (every built-in
+  algorithm at ``-k >= 1``) runs ``kmer_frames`` -> ``cand`` into a
+  ``[B, 6]`` int16 candidate list (ops/cand.py); the dense path (``-k 0``
+  on the device, custom algorithms at any ``-k``) runs
+  ``kmer_frames_nt`` -> ``counts`` -> ``shortlist`` into a ``[B, 20]``
+  int32 shortlist (ops/dense.py). On a CPU device the plain twins run;
 * ``_mask_from_list`` takes ``CAND_LIST_C`` from the port;
-* engine resolution keeps the env pins (``PANDASEQ_TPU_ENGINE=host``,
-  legacy ``PANDASEQ_TPU_HOST``); auto means the device engine.
+* engine resolution keeps the JAX package's order: constructor, then
+  ``PANDASEQ_TPU_ENGINE=host|tpu`` (``tpu``, the JAX package's name,
+  pins the device engine), then legacy ``PANDASEQ_TPU_HOST``, then the
+  measured probe (``runtime.pick_engine``).
 
-Not ported yet, and raising instead of running something else: the dense
-shortlist path (``-k 0`` on the device, custom algorithms: ROADMAP Q1
-item 5) and meshes (Q1 item 6). The device-offload and host-steal lanes
-(Q1 item 7) are off, so every batch's candidates come from the kernels.
+Not ported yet, and raising instead of running something else: meshes
+(ROADMAP Q1 item 6) and the LUT-scored dense shortlist (K7), which only
+a run without the native library reaches — and the port requires that
+library. The device-offload and host-steal lanes (Q1 item 7) are off, so
+every batch's device result comes from the kernels.
 """
 
 from __future__ import annotations
@@ -40,13 +49,8 @@ from pandaseq_tpu.tables import (QUAL_MATCH_PEAR, QUAL_MATCH_SIMPLE_BAYESIAN,
 from . import runtime
 from .ops import fused2
 
-_DENSE_MSG = ("the dense device shortlist path (-k 0 on the device, custom "
-              "algorithms) is not ported to PyTorch yet (ROADMAP Q1 item "
-              "5); pin PANDASEQ_TPU_ENGINE=host for -k 0")
-
-
 class _PendingList:
-    """One launched batch's candidate result. ``np.asarray`` waits on
+    """One launched batch's device result. ``np.asarray`` waits on
     the batch's CUDA event and returns the numpy view of its pinned host
     buffer; the batch's pinned inputs and device tensors stay referenced
     until then, so no buffer is reused while its batch is in flight."""
@@ -71,8 +75,8 @@ class _PendingList:
         return out
 
 
-def _pinned(a, dtype):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype)).pin_memory()
+def _host(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
 
 class BatchAssembler(_BatchAssembler):
@@ -157,8 +161,9 @@ class BatchAssembler(_BatchAssembler):
     def _resolve_host_only(self) -> bool:
         """Engine resolution, lazy at first dispatch. Priority:
         constructor host_only > PANDASEQ_TPU_ENGINE=host|tpu (tpu pins
-        the device engine) > legacy PANDASEQ_TPU_HOST > the device
-        engine."""
+        the device engine) > legacy PANDASEQ_TPU_HOST > the measured
+        probe (runtime.pick_engine: the device step against the native
+        twin, cached per environment)."""
         if self._host_only is None:
             legacy = os.environ.get("PANDASEQ_TPU_HOST")
             env = os.environ.get("PANDASEQ_TPU_ENGINE", "")
@@ -169,15 +174,18 @@ class BatchAssembler(_BatchAssembler):
                 self._host_only = legacy not in ("0", "")
                 self.engine_info = {"reason": "env-legacy"}
             else:
-                self._host_only = False
-                self.engine_info = {"reason": "auto"}
+                eng, info = runtime.pick_engine(
+                    self.device, num_kmers=min(max(self.cfg.num_kmers, 1),
+                                               2))
+                self._host_only = eng == "host"
+                self.engine_info = info
         return self._host_only
 
     @property
     def engine(self) -> str:
         """'host' (the native psq_cand_mask twin) or the device type of
-        the candidate search: 'cuda' for the kernels, 'cpu' for the
-        plain twins."""
+        the device step: 'cuda' for the kernels, 'cpu' for the plain
+        twins."""
         return "host" if self._resolve_host_only() else self.device.type
 
     def _offload_enabled(self) -> bool:
@@ -186,39 +194,40 @@ class BatchAssembler(_BatchAssembler):
     def _host_route_ok(self, sts):
         return False  # host-steal lane: ROADMAP Q1 item 7
 
-    def _sparse_mode(self):
-        sparse, lut = super()._sparse_mode()
-        if not sparse:
-            raise NotImplementedError(_DENSE_MSG)
-        return sparse, lut
-
     # -- the device step -----------------------------------------------
     def _launch(self, sparse, lut, plane, flen, rlen, fo32, ro32, Lb, O):
-        """The candidate search on already-built host arrays (the
-        sparse path: _sparse_mode raised for any other); returns a
-        _PendingList, never a device tensor."""
-        step = (fused2.assemble_candidates_list_packed4 if self._cand_list
-                else fused2.assemble_candidates_packed4)
-        k = self.cfg.num_kmers
+        """The device step on already-built host arrays: the candidate
+        search (sparse) or the dense shortlist; returns a _PendingList,
+        never a device tensor."""
+        cfg = self.cfg
+        if sparse:
+            step = (fused2.assemble_candidates_list_packed4
+                    if self._cand_list
+                    else fused2.assemble_candidates_packed4)
+            args = ((plane, np.int8), (flen, np.int32), (rlen, np.int32))
+            kw = dict(L=Lb, O=O, num_kmers=cfg.num_kmers)
+        elif lut:
+            raise NotImplementedError(fused2.LUT_MSG)
+        else:
+            step = fused2.assemble_shortlist_nt
+            args = ((plane, np.int8), (flen, np.int32), (rlen, np.int32),
+                    (fo32, np.int32), (ro32, np.int32))
+            kw = dict(L=Lb, O=O, SL=self.SL, minoverlap=cfg.minoverlap,
+                      maxoverlap=cfg.maxoverlap, num_kmers=cfg.num_kmers,
+                      algo_kind=self._algo_kind, pmatch=self._pmatch,
+                      pmismatch=self._pmismatch)
+        hosts = [_host(a, dt) for a, dt in args]
         if self.device.type == "cpu":
-            out = step(torch.from_numpy(np.ascontiguousarray(plane)),
-                       torch.from_numpy(np.ascontiguousarray(flen)),
-                       torch.from_numpy(np.ascontiguousarray(rlen)),
-                       L=Lb, O=O, num_kmers=k)
-            return _PendingList(out)
+            return _PendingList(step(*hosts, **kw))
         dev = self.device
-        hp = _pinned(plane, np.int8)
-        hf = _pinned(flen, np.int32)
-        hr = _pinned(rlen, np.int32)
-        dp = hp.to(dev, non_blocking=True)
-        df = hf.to(dev, non_blocking=True)
-        dr = hr.to(dev, non_blocking=True)
-        out = step(dp, df, dr, L=Lb, O=O, num_kmers=k)
+        hosts = [h.pin_memory() for h in hosts]
+        devs = [h.to(dev, non_blocking=True) for h in hosts]
+        out = step(*devs, **kw)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event(blocking=True)
         event.record(torch.cuda.current_stream(dev))
-        return _PendingList(host, event, (hp, hf, hr, dp, df, dr, out))
+        return _PendingList(host, event, (*hosts, *devs, out))
 
     def _mask_from_list(self, st, lst):
         """Rebuild the [B, O//32] candidate bitmask from the device's

@@ -4,8 +4,9 @@ Flag parsing, configuration and output helpers are the JAX package's
 (``pandaseq_tpu.cli.main``); ``run`` is that module's ``run`` with the
 device seams replaced: no JAX platform switch and no compilation cache,
 the port's ``BatchAssembler`` (device from ``PANDASEQ_TORCH_DEVICE``,
-default ``cuda``), a ``torch.profiler`` trace under
-``PANDASEQ_TPU_PROFILE``, and a dispatch group of 1 by default
+default ``cuda``; engine from the pins or the measured probe), a
+``torch.profiler`` trace under ``PANDASEQ_TPU_PROFILE``, and a dispatch
+group of 1 by default
 (``PANDASEQ_TPU_GROUP`` still overrides): stacking batches amortized a
 fixed per-dispatch cost of the TPU's remote wire, which a local card
 does not have.
@@ -79,17 +80,18 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
     fail_fmt = out_mod.format_fail_qual if c.fail_qual \
         else out_mod.format_fail
 
-    from ..runtime import maybe_profile
+    from ..runtime import describe, maybe_profile
     try:
         asm = BatchAssembler(c.cfg, L=512, modules=c.modules)
     except RuntimeError as e:  # no card for the device, no native library
         _err("ERR\tDEVICE\t%s" % e)
         return 1
     prof = maybe_profile().__enter__()  # PANDASEQ_TPU_PROFILE=<dir>
-    # provenance: which candidate-search engine serves this run (the
-    # device, or an env pin) — args.c:515-531 analogue
+    # provenance: which candidate-search engine serves this run (a pin,
+    # or the measured probe with its times) — args.c:515-531 analogue.
+    # The probe resolves here, before the first batch dispatches.
     logger.write_str("INFO\tENGINE\t%s (%s)"
-                     % (asm.engine, asm.engine_info["reason"]))
+                     % (asm.engine, describe(asm.engine_info)))
     reporter = stats.StatReporter(logger)
 
     native_reader = None

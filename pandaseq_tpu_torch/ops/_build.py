@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes`` — no PyTorch headers,
-so a build takes seconds. The build happens at first use, from the
-package's own sources, into ``build/kernels/`` beside the package. The
-library's name carries a hash of the sources and flags; it is written to
-a temporary file and renamed, so a rebuild never rewrites a library that
-a running process has loaded (as ``pandaseq_tpu/io/native.py`` does for
-the host library). ``nvcc``'s ``-Xptxas -v`` report (registers, shared
-memory, spills per kernel) is kept beside the library as ``.log``.
+Each source compiles with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once, in parallel processes; the objects link into one shared
+library with a plain C interface, loaded with ``ctypes`` — no PyTorch
+headers, so a build takes seconds. The build happens at first use, from
+the package's own sources, into ``build/kernels/`` beside the package.
+The library's name carries a hash of the sources and flags; it is
+written to a temporary file and renamed, so a rebuild never rewrites a
+library that a running process has loaded (as
+``pandaseq_tpu/io/native.py`` does for the host library). ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+kept beside the library as ``.log``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kmer_frames.cu", "cand.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+SOURCES = ("kmer_frames.cu", "cand.cu", "counts.cu", "shortlist.cu")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
+BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 _lock = threading.Lock()
@@ -53,14 +56,31 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed on %s:\n%s"
+                               % (", ".join(failed), "".join(logs)))
+        link = subprocess.run([nvcc, "-shared", "-o", tmp + ".tmp", *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     with open(so + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+        fh.write("".join(logs))
+    os.replace(tmp + ".tmp", so)
     return so
 
 
@@ -71,10 +91,19 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-            lib.psq_cuda_kmer_frames.restype = I
-            lib.psq_cuda_kmer_frames.argtypes = [P, P, P, P, P, L, I, I, P]
-            lib.psq_cuda_cand.restype = I
-            lib.psq_cuda_cand.argtypes = [P, P, L, I, I, I, I, P, P]
+            F = ctypes.c_float
+            sigs = {
+                "psq_cuda_kmer_frames": [P, P, P, P, P, L, I, I, P],
+                "psq_cuda_kmer_frames_nt": [P, P, P, P, P, L, I, I, P],
+                "psq_cuda_cand": [P, P, L, I, I, I, I, P, P],
+                "psq_cuda_counts": [P, P, P, L, I, I, P, P, P, P],
+                "psq_cuda_shortlist": [P, P, P, P, P, P, P, L, I, I, I, I,
+                                       I, F, F, F, F, P, P],
+            }
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.restype = I
+                fn.argtypes = argtypes
             lib.psq_cuda_error_string.restype = ctypes.c_char_p
             lib.psq_cuda_error_string.argtypes = [I]
             _lib = lib

@@ -1,5 +1,7 @@
-"""Wrappers of the port's two CUDA kernels (csrc/kmer_frames.cu and
-csrc/cand.cu) — the counterpart of ``pandaseq_tpu/ops/pallas_cand.py``.
+"""Wrappers of the sparse path's CUDA kernels (csrc/kmer_frames.cu and
+csrc/cand.cu) — the counterpart of ``pandaseq_tpu/ops/pallas_cand.py`` —
+and the launch counts of every kernel of the port (the dense path's
+wrappers are in ``ops/dense.py``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take, allocates the outputs with
@@ -16,22 +18,26 @@ import torch
 
 from . import _build
 
-# launches since the last reset_launch_counts()
-KMER_FRAMES_LAUNCHES = 0
-CAND_LAUNCHES = 0
+KERNELS = ("kmer_frames", "cand", "kmer_frames_nt", "counts", "shortlist")
+# launches of each kernel since the last reset_launch_counts()
+_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _MODES = {"list": 0, "mask": 1}
-MAX_WIDTH = 1024  # shared-memory rows of both kernels
+MAX_WIDTH = 1024  # shared-memory rows of every kernel
 
 
 def reset_launch_counts() -> None:
-    global KMER_FRAMES_LAUNCHES, CAND_LAUNCHES
-    KMER_FRAMES_LAUNCHES = 0
-    CAND_LAUNCHES = 0
+    for name in KERNELS:
+        _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return {"kmer_frames": KMER_FRAMES_LAUNCHES, "cand": CAND_LAUNCHES}
+    """{kernel name: launches since the last reset}."""
+    return dict(_LAUNCHES)
+
+
+def _launched(name) -> None:
+    _LAUNCHES[name] += 1
 
 
 def _check(t, name, dtype, shape, device):
@@ -56,7 +62,6 @@ def kmer_frames(plane4, flen, rlen, L, num_kmers):
     """(Fkm, Rkm) [B, L] int32 on the card from the packed plane4
     [B, L/2] int8 and flen/rlen [B] int32 (twin:
     fused2.plain_kmer_frames)."""
-    global KMER_FRAMES_LAUNCHES
     dev = plane4.device
     if dev.type != "cuda":
         raise ValueError(f"kmer_frames runs on a CUDA device, not {dev}")
@@ -78,7 +83,7 @@ def kmer_frames(plane4, flen, rlen, L, num_kmers):
             plane4.data_ptr(), flen.data_ptr(), rlen.data_ptr(),
             Fkm.data_ptr(), Rkm.data_ptr(), B, L, int(num_kmers), stream)
         _raise_on(lib, err, "kmer_frames")
-        KMER_FRAMES_LAUNCHES += 1
+        _launched("kmer_frames")
     return Fkm, Rkm
 
 
@@ -86,7 +91,6 @@ def candidates(Fkm, Rkm, O, mode, C):
     """Candidate list ([B, C+2] int16, ``mode="list"``) or bitmask
     ([B, O//32] int32, ``mode="mask"``) on the card from the k-mer
     frames (twin: fused2.plain_candidates)."""
-    global CAND_LAUNCHES
     dev = Fkm.device
     if dev.type != "cuda":
         raise ValueError(f"candidates runs on a CUDA device, not {dev}")
@@ -111,5 +115,5 @@ def candidates(Fkm, Rkm, O, mode, C):
                                 _MODES[mode], int(C), out.data_ptr(),
                                 stream)
         _raise_on(lib, err, "cand")
-        CAND_LAUNCHES += 1
+        _launched("cand")
     return out

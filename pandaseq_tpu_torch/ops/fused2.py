@@ -1,27 +1,37 @@
-"""Candidate-search device step of the PyTorch port: plain twins and the
-public entry points.
+"""Device steps of the PyTorch port: plain twins and the public entry
+points.
 
-Counterpart of ``pandaseq_tpu/ops/fused2.py`` for the sparse merge path
-(every built-in algorithm with ``-k >= 1``): the device's only job is
-the O(L^2) k-mer candidate search (assembler.c:84-118); the native
-host finalizer (native/psq_io.cpp:psq_finalize) does the exact f64
-selection, reconstruction and emission.
+Counterpart of ``pandaseq_tpu/ops/fused2.py``. Two device steps live
+here:
+
+* the sparse candidate search (every built-in algorithm with
+  ``-k >= 1``): the device's only job is the O(L^2) k-mer candidate
+  search (assembler.c:84-118); the native host finalizer
+  (native/psq_io.cpp:psq_finalize) does the exact f64 selection,
+  reconstruction and emission;
+* the dense shortlist (``-k 0`` and custom algorithms): exact integer
+  match / N / k-mer counts on every diagonal of the overlap plane, f32
+  scores, and the winner plus the top-SL offsets, from which the host
+  re-derives the exact f64 winner.
 
 Two kinds of function live here:
 
 * plain twins, written in device-agnostic PyTorch with the JAX
-  functions' names and arguments (``kmer_frames_codes``, ``plane_cand``,
-  ``pack_bits16``, ``_unpack2bit``, ...). They compute the same integers
+  functions' names and arguments (``kmer_frames``, ``kmer_frames_codes``,
+  ``plane_cand``, ``plane_counts``, ``shortlist_from_counts``,
+  ``pack_bits16``, ``_unpack2bit``, ...). They compute the same values
   as the JAX code, by the same method (the kmerseen rank is sort-based),
-  and never build a ``[B, L, L]`` plane. ``plain_kmer_frames`` and
-  ``plain_candidates`` mirror the two CUDA kernels of ``ops/cand.py``
-  argument for argument, so the kernels can be held against them on the
-  card;
-* the public entry points ``assemble_candidates_list_packed4`` and
-  ``assemble_candidates_packed4``, which pick the implementation only by
-  the device their tensors lie on: a CPU tensor runs the plain twins, a
-  CUDA tensor launches the kernels (or the kernel wrapper raises). There
-  is no fallback from one to the other.
+  and never build a ``[B, L, L]`` plane. ``plain_kmer_frames``,
+  ``plain_candidates``, ``plain_kmer_frames_nt``, ``plain_counts`` and
+  ``plain_shortlist`` mirror the CUDA kernels of ``ops/cand.py`` and
+  ``ops/dense.py`` argument for argument, so the kernels can be held
+  against them on the card;
+* the public entry points ``assemble_candidates_list_packed4``,
+  ``assemble_candidates_packed4``, ``assemble_candidates_nt`` and
+  ``assemble_shortlist_nt``, which pick the implementation only by the
+  device their tensors lie on: a CPU tensor runs the plain twins, a CUDA
+  tensor launches the kernels (or the kernel wrapper raises). There is
+  no fallback from one to the other.
 
 ``build_ptable`` is the port's copy of the JAX package's host table (plain
 numpy): the f64 probability table and the PHRED byte table built from it
@@ -50,6 +60,17 @@ CAND_LIST_C = 4
 
 # the frame width the rank key and the kernels' shared-memory rows allow
 MAX_FRAME = 1024
+
+# f32-vs-f64 shortlist band of the count-based scores, and the
+# shortlist width (pandaseq_tpu/ops/fused2.py)
+BAND_COUNTS = 0.01
+SHORTLIST = 8
+# score families of the dense device shortlist; pear / rdp_mle score
+# per-base LUT sums (lut_plane_sums, K7), which are not ported
+COUNT_KINDS = ("counts", "ea_util", "flash", "stitch")
+LUT_MSG = ("the LUT-scored dense shortlist (pear / rdp_mle without the "
+           "native library: lut_plane_sums, K7) is not ported to PyTorch "
+           "yet (ROADMAP Q1 item 6, with the mesh slice)")
 
 
 def _shift(x, t: int):
@@ -92,6 +113,17 @@ def _kmer_lead(codes, L):
     for t in range(KMER_LEN):
         k = k | (_shift(codes, -t) << (2 * t))
     return k
+
+
+def kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers):
+    """K-mer seeding on reversed frames of 4-bit nucleotide codes:
+    2-bit k-mer codes through ``_KCODE`` and non-N masks ``nt != 0x0F``
+    (a pad, nt 0, counts as non-N), then ``kmer_frames_codes``."""
+    kcode = torch.from_numpy(_KCODE).to(nt_f.device)
+    nt_f = nt_f.to(torch.int64)
+    nt_r = nt_r.to(torch.int64)
+    return kmer_frames_codes(kcode[nt_f], nt_f != 0x0F, kcode[nt_r],
+                             nt_r != 0x0F, flen, rlen, L, num_kmers)
 
 
 def kmer_frames_codes(cf, nonn_f, cr, nonn_r, flen, rlen, L, num_kmers):
@@ -160,6 +192,135 @@ def plane_cand(Fkm, Rkm, O, j0=0, Oj=None):
     for j in range(j0, min(j0 + Oj, O)):
         candc[:, j:] += Fkm[:, j:j + 1] == R[:, :O - j]
     return candc
+
+
+def plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0=0, Oj=None):
+    """Exact integer diagonal sums over plane rows j' in [j0, j0+Oj):
+    matches m (``f & r != 0``, N excluded), unknowns unk (either side N,
+    neither side a pad) and k-mer hits candc (``Fkm == Rkm``), each
+    [B, O] int32 with diagonal t = j' + i < O. One [B, O] slice per row
+    j': the [B, O, O] planes are never built."""
+    if Oj is None:
+        Oj = O
+    B = nt_f.shape[0]
+    dev = nt_f.device
+    r = nt_r[:, :O].to(torch.int32)
+    R = Rkm[:, :O]
+    r_live = r != 0
+    r_n = r == 0x0F
+    m = torch.zeros((B, O), dtype=torch.int32, device=dev)
+    unk = torch.zeros_like(m)
+    candc = torch.zeros_like(m)
+    for j in range(j0, min(j0 + Oj, O)):
+        w = O - j
+        f = nt_f[:, j:j + 1].to(torch.int32)
+        n = ((f == 0x0F) | r_n[:, :w]) & (f != 0) & r_live[:, :w]
+        m[:, j:] += ((f & r[:, :w]) != 0) & ~n
+        unk[:, j:] += n
+        candc[:, j:] += Fkm[:, j:j + 1] == R[:, :w]
+    return m, unk, candc
+
+
+def _f32(x, dev):
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def shortlist_from_counts(m, unk, candc, lutsum, flen, rlen, fo, ro, *,
+                          O, SL, minoverlap, maxoverlap, algo_kind,
+                          pmatch, pmismatch, nn, band):
+    """f32 scoring, candidate-range rules and winner / top-SL packing
+    from the integer diagonal sums. Returns [B, 2*SL + 4] int32 in the
+    layout of ``assemble_shortlist_nt``. Every f32 operation is rounded
+    on its own, in the JAX code's order (no fused multiply-add); the
+    top SL come from a stable descending sort, so ties keep the lower
+    offset first, and ``besto32`` is the first maximum."""
+    dev = m.device
+    f32 = torch.float32
+    ninf = float("-inf")
+    flen, rlen, fo, ro = (x.to(torch.int32)[:, None]
+                          for x in (flen, rlen, fo, ro))
+    o2 = torch.arange(1, O + 1, dtype=torch.int32, device=dev)[None, :]
+    nvalid = (torch.minimum(o2, rlen)
+              - (o2 - flen).clamp_min(0)).clamp_min(0)
+    mm = nvalid - m - unk
+
+    # candidate range (assembler.c:73-84,118); maxoverlap == 0 replaces
+    # the offset-derived bound with min(flen, rlen)
+    if maxoverlap == 0:
+        maxo = torch.minimum(flen, rlen)
+    else:
+        maxo = (flen + rlen - minoverlap - fo - ro - 1).clamp_max(
+            maxoverlap)
+    in_range = (o2 >= minoverlap) & (o2 <= maxo)
+    cand_in = (candc != 0) & in_range
+    none_found = ~cand_in.any(dim=1, keepdim=True)
+    cand_in = torch.where(none_found, in_range, cand_in)
+    examined = cand_in.sum(dim=1, dtype=torch.int32)
+
+    wrapped = None
+    if algo_kind in ("pear", "rdp_mle"):
+        scores = lutsum
+    elif algo_kind == "ea_util":
+        bad = (mm + unk).to(f32)  # algo_ea_util.c:49-55
+        scores = torch.log((bad * bad + _f32(1.0, dev))
+                           / nvalid.clamp_min(1).to(f32))
+    elif algo_kind == "flash":
+        # integer floor division quirk
+        ratio = torch.div(mm + unk, nvalid.clamp_min(1),
+                          rounding_mode="floor")
+        scores = torch.where(
+            nvalid == 0, _f32(-2.0, dev),
+            torch.where(ratio > 0, torch.log(ratio.to(f32)),
+                        _f32(ninf, dev)))
+    elif algo_kind == "stitch":
+        # uint64 wrap (algo_stitch.c:40-56): the first wrapped offset
+        # wins; +60 reproduces that under first-index ties
+        diff = m - mm
+        pos_s = torch.log(diff.to(f32).clamp_min(1e-30)
+                          / (flen + rlen).to(f32))
+        scores = torch.where(diff > 0, pos_s,
+                             torch.where(diff < 0, _f32(60.0, dev),
+                                         _f32(ninf, dev)))
+        wrapped = (diff < 0) & cand_in
+    elif algo_kind == "counts":  # algo_simple_bayes.c:45-65
+        tail = (o2 < flen) | (o2 < rlen)
+        nn_count = torch.where(tail, flen + rlen - 2 * o2 + unk, unk)
+        scores = (_f32(nn, dev) * nn_count.to(f32)
+                  + m.to(f32) * _f32(pmatch, dev)) \
+            + mm.to(f32) * _f32(pmismatch, dev)
+    else:
+        raise ValueError(f"unknown score kind {algo_kind!r}")
+
+    scores = torch.where(cand_in, scores, _f32(ninf, dev))
+    # + 0.0 folds -0.0 into +0.0, so the sort sees the ties a float
+    # comparison sees, on every device
+    order = torch.sort(scores + 0.0, dim=1, descending=True,
+                       stable=True).indices
+    besto32 = (order[:, 0] + 1).to(torch.int32)
+    best32 = scores.gather(1, order[:, :1])
+    in_band = (cand_in & torch.isfinite(scores)
+               & (scores >= best32 - _f32(band, dev)))
+    n_band = in_band.sum(dim=1, dtype=torch.int32)
+    if wrapped is not None:
+        n_band = torch.where(wrapped.any(dim=1), 1, n_band)
+
+    topi = order[:, :SL]
+    topv = scores.gather(1, topi)
+    live = topv > ninf
+    topi = topi.to(torch.int32)
+    packed = torch.where(
+        live, (topi + 1) | (m.gather(1, topi.long()) << 10)
+        | (mm.gather(1, topi.long()) << 20), 0)
+    sentinel = _f32(-3e38, dev)
+    return torch.cat([
+        packed.to(torch.int32),
+        torch.where(live, topv, sentinel).view(torch.int32),
+        besto32[:, None],
+        examined[:, None],
+        n_band.to(torch.int32)[:, None],
+        torch.where(torch.isfinite(best32), best32,
+                    sentinel).view(torch.int32),
+    ], dim=1)
 
 
 def pack_bits16(nz, O):
@@ -238,26 +399,34 @@ def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C):
     raise ValueError(f"unknown candidate mode {mode!r}")
 
 
-def _candidates_packed4(plane4, flen, rlen, L, O, num_kmers, mode, C):
+def _step_inputs(plane, lens, L, O):
+    """(plane, [B] int32 lengths / offsets, O) on one device, checked;
+    the device type picks the implementation: "cuda" launches the
+    kernels, "cpu" runs the plain twins."""
     if O is None:
         O = L
     if O > MAX_FRAME:
         raise ValueError(f"O={O} exceeds {MAX_FRAME}: offsets must fit "
                          "int16, and overflow O routes to the host")
-    plane4 = torch.as_tensor(plane4)
-    flen = torch.as_tensor(flen)
-    rlen = torch.as_tensor(rlen)
-    dev = plane4.device
-    if flen.device != dev or rlen.device != dev:
-        raise ValueError("plane4, flen and rlen must be on one device")
+    plane = torch.as_tensor(plane)
+    dev = plane.device
+    lens = [torch.as_tensor(x) for x in lens]
+    if any(x.device != dev for x in lens):
+        raise ValueError("the plane and the [B] arrays must be on one "
+                         "device")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no device step for device {dev}")
     if dev.type == "cuda":
+        lens = [x.to(torch.int32).contiguous() for x in lens]
+    return plane, lens, O
+
+
+def _candidates_packed4(plane4, flen, rlen, L, O, num_kmers, mode, C):
+    plane4, (flen, rlen), O = _step_inputs(plane4, (flen, rlen), L, O)
+    if plane4.device.type == "cuda":
         from . import cand
-        flen = flen.to(torch.int32).contiguous()
-        rlen = rlen.to(torch.int32).contiguous()
         Fkm, Rkm = cand.kmer_frames(plane4, flen, rlen, L, num_kmers)
         return cand.candidates(Fkm, Rkm, O, mode, C)
-    if dev.type != "cpu":
-        raise ValueError(f"no candidate search for device {dev}")
     Fkm, Rkm = plain_kmer_frames(plane4, flen, rlen, L, num_kmers)
     return plain_candidates(Fkm, Rkm, O, mode, C)
 
@@ -280,6 +449,114 @@ def assemble_candidates_packed4(plane4, flen, rlen, *, L: int,
     words (the engine's download when the list form is off)."""
     return _candidates_packed4(plane4, flen, rlen, L, O, num_kmers,
                                "mask", CAND_LIST_C)
+
+
+def _nibbles(nt):
+    """(nt_f, nt_r) int32: the forward read's low nibble and the reverse
+    read's high nibble of the nibble-packed plane (bytes unsigned)."""
+    nts = nt.to(torch.int32) & 0xFF
+    return nts & 0x0F, nts >> 4
+
+
+def plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers):
+    """Plain twin of the ``kmer_frames_nt`` kernel: (Fkm, Rkm) [B, L]
+    int32 from the nibble-packed plane ``nt`` [B, L] int8, with the
+    true N positions."""
+    nt_f, nt_r = _nibbles(nt)
+    return kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers)
+
+
+def plain_counts(nt, Fkm, Rkm, O):
+    """Plain twin of the ``counts`` kernel: (m, unk, candc) [B, O]
+    int32 from the nibble-packed plane and the k-mer frames."""
+    nt_f, nt_r = _nibbles(nt)
+    return plane_counts(nt_f, nt_r, Fkm, Rkm, O)
+
+
+def plain_shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL,
+                    minoverlap, maxoverlap, algo_kind, pmatch, pmismatch,
+                    nn, band):
+    """Plain twin of the ``shortlist`` kernel: [B, 2*SL + 4] int32 from
+    the count sums, for the count-based score kinds."""
+    if algo_kind not in COUNT_KINDS:
+        raise ValueError(f"score kind {algo_kind!r} is not count-based")
+    return shortlist_from_counts(
+        m, unk, candc, None, flen, rlen, fo, ro, O=O, SL=SL,
+        minoverlap=minoverlap, maxoverlap=maxoverlap, algo_kind=algo_kind,
+        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band)
+
+
+def _shortlist_core(nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
+                    SL, minoverlap, maxoverlap, num_kmers, algo_kind,
+                    pmatch, pmismatch, nn, nn_term, band, lut_match,
+                    lut_mismatch):
+    """The dense shortlist on plain twins (see assemble_shortlist_nt).
+    The quality planes and LUTs serve only the LUT kinds (K7)."""
+    if algo_kind not in COUNT_KINDS:
+        raise NotImplementedError(LUT_MSG)
+    if O is None:
+        O = L
+    if band is None:
+        band = BAND_COUNTS
+    Fkm, Rkm = plain_kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+    m, unk, candc = plain_counts(nt_pack, Fkm, Rkm, O)
+    return plain_shortlist(
+        m, unk, candc, flen, rlen, fo, ro, O=O, SL=SL,
+        minoverlap=minoverlap, maxoverlap=maxoverlap, algo_kind=algo_kind,
+        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band)
+
+
+def assemble_shortlist_nt(nt_pack, flen, rlen, fo, ro, *, L: int,
+                          O: int | None = None, SL: int = SHORTLIST,
+                          minoverlap: int = 2, maxoverlap: int = 0,
+                          num_kmers: int = 2, algo_kind: str = "counts",
+                          pmatch: float = 0.0, pmismatch: float = 0.0,
+                          nn: float = float(tables.QUAL_NN_SIMPLE_BAYESIAN),
+                          band: float | None = None):
+    """The dense device step (``-k 0`` and custom algorithms) over
+    REVERSED frames -> [B, 2*SL + 4] int32:
+
+      [:SL]        packed shortlist: o | m<<10 | mm<<20 (0 = empty),
+                   descending f32 score, ties toward smaller o
+      [SL:2*SL]    bitcast f32 scores of those offsets (-3e38 if none)
+      [2*SL]       besto32 (f32 argmax offset, first-max)
+      [2*SL+1]     examined (number of candidate offsets in range)
+      [2*SL+2]     n_band (offsets within ``band`` of the f32 max)
+      [2*SL+3]     bitcast f32 best score (-3e38 if not finite)
+
+    ``nt_pack`` [B, L] int8 carries both reads' 4-bit codes (fwd |
+    rev << 4); flen / rlen / fo / ro are [B]. Count-based score kinds
+    only (counts, ea_util, flash, stitch)."""
+    if algo_kind not in COUNT_KINDS:
+        raise ValueError(f"score kind {algo_kind!r} is not count-based")
+    if band is None:
+        band = BAND_COUNTS
+    nt_pack, (flen, rlen, fo, ro), O = _step_inputs(
+        nt_pack, (flen, rlen, fo, ro), L, O)
+    kw = dict(O=O, SL=SL, minoverlap=minoverlap, maxoverlap=maxoverlap,
+              algo_kind=algo_kind, pmatch=pmatch, pmismatch=pmismatch,
+              nn=nn, band=band)
+    if nt_pack.device.type == "cuda":
+        from . import dense
+        Fkm, Rkm = dense.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+        m, unk, candc = dense.counts(nt_pack, Fkm, Rkm, O)
+        return dense.shortlist(m, unk, candc, flen, rlen, fo, ro, **kw)
+    return _shortlist_core(nt_pack, None, None, flen, rlen, fo, ro, L=L,
+                           num_kmers=num_kmers, nn_term=0.0,
+                           lut_match=None, lut_mismatch=None, **kw)
+
+
+def assemble_candidates_nt(nt_pack, flen, rlen, *, L: int,
+                           O: int | None = None, num_kmers: int = 2):
+    """k-mer candidate search on the nibble-packed plane with the true
+    N positions: [B, O//32] int32 candidate bitmask words."""
+    nt_pack, (flen, rlen), O = _step_inputs(nt_pack, (flen, rlen), L, O)
+    if nt_pack.device.type == "cuda":
+        from . import cand, dense
+        Fkm, Rkm = dense.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+        return cand.candidates(Fkm, Rkm, O, "mask", CAND_LIST_C)
+    Fkm, Rkm = plain_kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+    return plain_candidates(Fkm, Rkm, O, "mask")
 
 
 def build_ptable(algo) -> np.ndarray:

@@ -1,7 +1,9 @@
 """The PyTorch port's batch engine (pandaseq_tpu_torch/assembler.py) on
 the CPU against the JAX package's engine: the same emitted bytes and STAT
-counters for all seven built-in algorithms, through the same host
-pipeline; and the seams that are not ported raise."""
+counters for all seven built-in algorithms on the sparse path, for the
+five count-based ones at -k 0 and for a custom algorithm on the dense
+path, through the same host pipeline; and the seams that are not ported
+raise."""
 
 import os
 import subprocess
@@ -59,7 +61,7 @@ def test_engine_equals_jax_engine(name):
     got = _emit(asm)
     assert want[0] and got == want
     # plain twins on the CPU: no kernel launched
-    assert cand.launch_counts() == {"kmer_frames": 0, "cand": 0}
+    assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)
     np.testing.assert_array_equal(asm._ptbl.view(np.uint64),
                                   JaxAssembler(cfg)._ptbl.view(np.uint64))
 
@@ -87,19 +89,53 @@ def test_launch_returns_host_arrays():
 
 
 def test_host_engine_pin_and_k0(monkeypatch):
-    """-k 0 on the device is the dense shortlist path, not ported: it
-    raises. Pinned to the host engine it runs, equal to the JAX
-    package's host engine."""
+    """-k 0 on the device is the dense shortlist path: it runs through
+    the three dense twins and equals the JAX package's device engine.
+    Pinned to the host engine it runs the native twin, equal to the JAX
+    package's host engine. Meshes still raise."""
     cfg = oracle.OracleConfig()
     cfg.num_kmers = 0
-    with pytest.raises(NotImplementedError, match="Q1 item 5"):
-        _emit(BatchAssembler(cfg, device="cpu"))
+    asm = BatchAssembler(cfg, device="cpu")
+    st = asm._pre(next(iter(_batches(16))))
+    lst = np.asarray(asm._dispatch(st))
+    assert st["plane_kind"] == 0
+    assert lst.dtype == np.int32 and lst.shape == (16, 2 * asm.SL + 4)
+    assert _emit(BatchAssembler(cfg, device="cpu")) == _emit(
+        JaxAssembler(cfg))
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
     asm = BatchAssembler(cfg, device="cpu")
     assert asm.engine == "host"
     assert _emit(asm) == _emit(JaxAssembler(cfg))
     with pytest.raises(NotImplementedError, match="Q1 item 6"):
         BatchAssembler(device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("name", ["simple_bayesian", "uparse", "ea_util",
+                                  "flash", "stitch"])
+def test_engine_k0_equals_jax_engine(name):
+    """-k 0, the dense device path, for each count-based algorithm."""
+    cfg = oracle.OracleConfig()
+    cfg.algorithm = oracle.make_algorithm(name, None)
+    cfg.num_kmers = 0
+    want = _emit(JaxAssembler(cfg))
+    cand.reset_launch_counts()
+    got = _emit(BatchAssembler(cfg, device="cpu"))
+    assert want[0] and got == want
+    assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)
+
+
+def test_custom_algorithm_equals_jax_engine():
+    """A custom algorithm takes the dense path at any -k: the shortlist
+    shapes the plane, and every pair replays through the oracle."""
+
+    class Mimic(oracle.SimpleBayes):
+        name = "mimic_sb"
+
+    cfg = oracle.OracleConfig(algorithm=Mimic())
+    asm = BatchAssembler(cfg, device="cpu")
+    assert asm._custom
+    want = _emit(JaxAssembler(cfg))
+    assert want[0] and _emit(asm) == want
 
 
 @pytest.mark.parametrize("name", ["simple_bayesian", "pear"])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: equal to their plain PyTorch
 twins and to native.cand_mask (the exact host twin), and the engine on
-the card equal to the engine on the CPU. Every test is marked ``cuda``
+the card equal to the engine on the CPU, on the sparse path and the
+dense -k 0 path. Every test is marked ``cuda``
 and skips where ``torch.cuda.is_available()`` is False; on a machine
 with the card (which has no JAX, hence no conftest) run
 
@@ -17,7 +18,7 @@ import torch
 
 from pandaseq_tpu.io import native
 from pandaseq_tpu_torch.assembler import BatchAssembler
-from pandaseq_tpu_torch.ops import cand, fused2
+from pandaseq_tpu_torch.ops import cand, dense, fused2
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +104,95 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
         out[device, group] = b"".join(
             p for _, _, p in asm.emit_stream(reader, depth=2,
                                              threaded=True, group=group))
-        assert cand.launch_counts() == {"kmer_frames": launches,
-                                        "cand": launches}
+        assert cand.launch_counts() == dict(
+            dict.fromkeys(cand.KERNELS, 0), kmer_frames=launches,
+            cand=launches)
     assert out["cpu", 1] and len(set(out.values())) == 1
+
+
+def _nt_planes(rng, B, L):
+    """Nibble planes with N runs, degenerate codes, zero tails past the
+    read lengths and low-entropy rows (repeated k-mers)."""
+    codes = np.array([1, 2, 4, 8, 1, 2, 4, 8, 15, 5, 10, 3], np.uint8)
+    fwd = codes[rng.integers(0, len(codes), (B, L))]
+    rev = codes[rng.integers(0, len(codes), (B, L))]
+    fwd[:B // 8] = 2  # poly-C: every k-mer equal
+    rev[:B // 8] = 2
+    fwd[B // 8:B // 4, 20:40] = 15  # N runs
+    flen = rng.integers(0, L + 1, B).astype(np.int32)
+    rlen = rng.integers(0, L + 1, B).astype(np.int32)
+    pos = np.arange(L)[None, :]
+    fwd[pos >= flen[:, None]] = 0
+    rev[pos >= rlen[:, None]] = 0
+    return (fwd | (rev << 4)).view(np.int8), flen, rlen
+
+
+@pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 320)])
+def test_dense_kernels_equal_twins(dev, Lb, O):
+    """kmer_frames_nt, counts and shortlist against their twins on the
+    card, exactly, for every num_kmers and score kind, with maxoverlap
+    0 and > 0."""
+    rng = np.random.default_rng(Lb)
+    B = 256
+    nt, flen, rlen = _nt_planes(rng, B, Lb)
+    fo = rng.integers(0, 4, B).astype(np.int32)
+    ro = rng.integers(0, 4, B).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nt, flen, rlen, fo, ro = map(t, (nt, flen, rlen, fo, ro))
+    for k in (0, 1, 2, 3):
+        Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, k)
+        Fp, Rp = fused2.plain_kmer_frames_nt(nt, flen, rlen, Lb, k)
+        assert torch.equal(Fk, Fp) and torch.equal(Rk, Rp)
+        got = dense.counts(nt, Fk, Rk, O)
+        for g, w in zip(got, fused2.plain_counts(nt, Fp, Rp, O)):
+            assert torch.equal(g, w)
+        for kind in fused2.COUNT_KINDS:
+            for maxoverlap in (0, 200):
+                kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
+                          algo_kind=kind, pmatch=-0.0105, pmismatch=-2.36,
+                          nn=-1.386294, band=0.01)
+                sl = dense.shortlist(*got, flen, rlen, fo, ro, **kw)
+                want = fused2.plain_shortlist(*got, flen, rlen, fo, ro,
+                                              **kw)
+                assert torch.equal(sl, want), (k, kind, maxoverlap)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_candidates_nt_equal_host_mask(dev, k):
+    """assemble_candidates_nt on the card equals the exact host twin
+    native.cand_mask, on the synth reads (N bases included)."""
+    b = _batch()
+    Lb = 256
+    nt = np.ascontiguousarray(b.nt_packed()[:, :Lb])
+    got = fused2.assemble_candidates_nt(
+        torch.from_numpy(nt).to(dev), torch.from_numpy(b.flen).to(dev),
+        torch.from_numpy(b.rlen).to(dev), L=Lb, num_kmers=k)
+    rows = np.arange(len(b.sids), dtype=np.int64)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  native.cand_mask(b, rows, k, Lb))
+
+
+@pytest.mark.parametrize("name", ["simple_bayesian", "stitch"])
+def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
+    """-k 0: the dense kernels, once each per dispatch, give the bytes
+    of the plain twins."""
+    from pandaseq_tpu import oracle
+    monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    cfg = oracle.OracleConfig()
+    cfg.algorithm = oracle.make_algorithm(name, None)
+    cfg.num_kmers = 0
+    out = {}
+    for device, launches in (("cpu", 0), ("cuda", 4)):
+        cand.reset_launch_counts()
+        asm = BatchAssembler(cfg, device=device)
+        reader = native.NativeBatchReader(
+            os.path.join(DATA, "synth_1.fastq"),
+            os.path.join(DATA, "synth_2.fastq"), batch=64, L=512)
+        out[device] = b"".join(
+            p for _, _, p in asm.emit_stream(reader, depth=2,
+                                             threaded=True))
+        assert cand.launch_counts() == dict(
+            dict.fromkeys(cand.KERNELS, 0), kmer_frames_nt=launches,
+            counts=launches, shortlist=launches)
+    assert out["cpu"] and out["cuda"] == out["cpu"]

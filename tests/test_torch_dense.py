@@ -1,0 +1,236 @@
+"""The dense -k 0 shortlist path of the PyTorch port against the JAX
+package on the CPU: the N-aware k-mer frames (``kmer_frames``),
+``plane_counts``, ``assemble_candidates_nt``, ``shortlist_from_counts``
+and ``assemble_shortlist_nt``.
+
+Tolerances: the frames, counts and candidate masks are integers, equal
+bit for bit. Of the shortlist, ``besto32``, ``examined`` and ``n_band``
+are equal, and so are the packed top-SL columns on rows without a
+near-tie among the shipped scores. The f32 score columns agree within
+``2**-21 * |score| + 2**-13``: XLA on the CPU contracts ``a * b + c``
+into a fused multiply-add and has its own ``log``, while the twin rounds
+every operation on its own as the CUDA kernel does; near cancellation in
+the simple_bayesian sum that is one rounding of the largest term (up to
+~2400 at O=512, whose ulp is 2**-12), and elsewhere a few ulp. The
+largest difference measured on these inputs was 3.05e-05 (a score of
+0.0329, simple_bayesian)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pandaseq_tpu import tables
+from pandaseq_tpu.ops import fused2 as jf
+from pandaseq_tpu_torch.ops import fused2 as tf
+from tests.test_torch_fused2 import _eq, _t
+
+torch.set_num_threads(1)
+
+SL = 8
+NN = float(tables.QUAL_NN_SIMPLE_BAYESIAN)
+# pmatch / pmismatch of the counts kind: simple_bayesian-like logs
+PM, PMM = -0.0105, -2.36
+
+_jax_frames = jax.jit(jf.kmer_frames, static_argnums=(4, 5))
+_jax_counts = jax.jit(jf.plane_counts, static_argnums=(4, 5, 6))
+_jax_shortlist = jax.jit(
+    jf.shortlist_from_counts,
+    static_argnames=("O", "SL", "minoverlap", "maxoverlap", "algo_kind",
+                     "pmatch", "pmismatch", "nn", "band"))
+
+
+def _nt_planes(rng, B, L):
+    """Reversed nibble frames with N runs, degenerate codes, zero tails
+    and edge lengths; odd rows draw from two bases, so k-mers repeat."""
+    codes = np.array([1, 2, 4, 8, 15, 15, 15, 5, 10], np.uint8)
+    fwd = codes[rng.integers(0, len(codes), (B, L))]
+    rev = codes[rng.integers(0, len(codes), (B, L))]
+    fwd[1::2] = np.array([2, 8], np.uint8)[rng.integers(0, 2, (B // 2, L))]
+    rev[1::2] = np.array([2, 8], np.uint8)[rng.integers(0, 2, (B // 2, L))]
+    fwd[2, 10:30] = 15  # an N run
+    flen = rng.integers(0, L + 1, B).astype(np.int32)
+    rlen = rng.integers(0, L + 1, B).astype(np.int32)
+    flen[:4] = [0, 9, 10, L]
+    rlen[:4] = [0, 8, 9, L]
+    pos = np.arange(L)[None, :]
+    fwd[pos >= flen[:, None]] = 0
+    rev[pos >= rlen[:, None]] = 0
+    return fwd, rev, (fwd | (rev << 4)).view(np.int8), flen, rlen
+
+
+@pytest.mark.parametrize("num_kmers", [0, 1, 2, 3])
+@pytest.mark.parametrize("L", [64, 128, 256])
+def test_kmer_frames_nt_equals_jax(L, num_kmers):
+    rng = np.random.default_rng(10 * L + num_kmers)
+    fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
+    want = _jax_frames(jnp.asarray(fwd.astype(np.int32)),
+                       jnp.asarray(rev.astype(np.int32)), jnp.asarray(flen),
+                       jnp.asarray(rlen), L, num_kmers)
+    got = tf.plain_kmer_frames_nt(_t(nt), _t(flen), _t(rlen), L, num_kmers)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    assert (got[1].numpy() >= 0).any()
+    if num_kmers:
+        assert (got[0].numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("L,O,j0,Oj", [(64, 64, 0, None), (256, 128, 0, None),
+                                       (256, 256, 64, 64)])
+def test_plane_counts_equals_jax(L, O, j0, Oj):
+    """Whole-plane counts, and a row block (the op-axis slice)."""
+    rng = np.random.default_rng(O + j0)
+    fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
+    Fkm, Rkm = tf.plain_kmer_frames_nt(_t(nt), _t(flen), _t(rlen), L, 2)
+    want = _jax_counts(jnp.asarray(fwd.astype(np.int32)),
+                       jnp.asarray(rev.astype(np.int32)),
+                       jnp.asarray(Fkm.numpy()), jnp.asarray(Rkm.numpy()),
+                       O, j0, Oj)
+    if j0 == 0 and Oj is None:
+        got = tf.plain_counts(_t(nt), Fkm, Rkm, O)
+    else:
+        got = tf.plane_counts(_t(fwd.astype(np.int32)),
+                              _t(rev.astype(np.int32)), Fkm, Rkm, O, j0, Oj)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert got[0].numpy().any() and got[1].numpy().any()
+
+
+@pytest.mark.parametrize("pallas", ["", "interpret"])
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
+def test_assemble_candidates_nt_equals_jax(monkeypatch, num_kmers, pallas):
+    """The JAX step jitted as production runs it, and again through
+    plane_cand with PANDASEQ_TPU_PALLAS=interpret (the Pallas kernel in
+    interpret mode, O % 128 == 0)."""
+    rng = np.random.default_rng(num_kmers)
+    L = O = 128
+    fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
+    if pallas:
+        monkeypatch.setenv("PANDASEQ_TPU_PALLAS", pallas)
+        Fkm, Rkm = jf.kmer_frames(jnp.asarray(fwd.astype(np.int32)),
+                                  jnp.asarray(rev.astype(np.int32)),
+                                  jnp.asarray(flen), jnp.asarray(rlen), L,
+                                  num_kmers)
+        want = jf.pack_bits16(jf.plane_cand(Fkm, Rkm, O) != 0, O)
+    else:
+        want = jf.assemble_candidates_nt(nt, flen, rlen, L=L,
+                                         num_kmers=num_kmers)
+    got = tf.assemble_candidates_nt(_t(nt), _t(flen), _t(rlen), L=L,
+                                    num_kmers=num_kmers)
+    _eq(got, want)
+    assert got.numpy().any()
+
+
+def _counts(rng, B, O):
+    """Count sums with rows built to tie and rows with no k-mer hit.
+
+    Row 0 (flen = rlen = O) has candidates only at o = q*q + 1, with
+    mm = q and unk = 0, so ea_util scores log((q*q + 1) / o) = 0 at all
+    nine of them in range: more exact ties than SL. Rows 1-3 have no
+    k-mer hit (ALL_BITS_IF_NONE); row 4 has an empty range."""
+    flen = rng.integers(0, O + 1, B).astype(np.int32)
+    rlen = rng.integers(0, O + 1, B).astype(np.int32)
+    fo = rng.integers(0, 4, B).astype(np.int32)
+    ro = rng.integers(0, 4, B).astype(np.int32)
+    o2 = np.arange(1, O + 1)[None, :]
+    nvalid = np.maximum(0, np.minimum(o2, rlen[:, None])
+                        - np.maximum(0, o2 - flen[:, None]))
+    m = (rng.random((B, O)) * (nvalid + 1)).astype(np.int32)
+    unk = (rng.random((B, O)) * (nvalid - m + 1)).astype(np.int32)
+    candc = (rng.random((B, O)) < 0.05) * rng.integers(1, 4, (B, O))
+    flen[0] = rlen[0] = O
+    candc[0] = 0
+    for q in range(1, 11):
+        o = q * q + 1
+        m[0, o - 1] = o - q
+        unk[0, o - 1] = 0
+        candc[0, o - 1] = 1
+    candc[1:4] = 0
+    flen[4] = rlen[4] = 1
+    return m, unk, candc.astype(np.int32), flen, rlen, fo, ro
+
+
+def _near_tie_rows(want):
+    """Rows where two of the SL shipped finite f32 scores (JAX's)
+    differ but lie within the tolerance: there the order may differ."""
+    s = want[:, SL:2 * SL].view(np.float32).astype(np.float64)
+    d = np.abs(np.diff(s, axis=1))
+    tol = 2.0 ** -21 * np.abs(s[:, 1:]) + 2.0 ** -13
+    return ((d > 0) & (d <= tol) & (s[:, 1:] > -3e38)).any(axis=1)
+
+
+def _check_shortlist(got, want):
+    """The tolerances of the module docstring; returns the largest f32
+    difference."""
+    got = got.numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got[:, 2 * SL:2 * SL + 3],
+                                  want[:, 2 * SL:2 * SL + 3])
+    near = _near_tie_rows(want)
+    np.testing.assert_array_equal(got[~near, :SL], want[~near, :SL])
+    cols = np.r_[SL:2 * SL, 2 * SL + 3]
+    gf = got[:, cols].view(np.float32).astype(np.float64)
+    wf = want[:, cols].view(np.float32).astype(np.float64)
+    np.testing.assert_allclose(gf, wf, rtol=2.0 ** -21, atol=2.0 ** -13)
+    return np.abs(gf - wf).max()
+
+
+KINDS = [("counts", 0), ("counts", 150), ("ea_util", 0), ("ea_util", 150),
+         ("flash", 0), ("flash", 150), ("stitch", 0), ("stitch", 150)]
+
+
+@pytest.mark.parametrize("kind,maxoverlap", KINDS)
+def test_shortlist_from_counts_equals_jax(kind, maxoverlap):
+    rng = np.random.default_rng(len(kind) + maxoverlap)
+    B, O = 48, 256
+    m, unk, candc, flen, rlen, fo, ro = _counts(rng, B, O)
+    kw = dict(O=O, SL=SL, minoverlap=3, maxoverlap=maxoverlap,
+              algo_kind=kind, pmatch=PM, pmismatch=PMM, nn=NN,
+              band=tf.BAND_COUNTS)
+    want = _jax_shortlist(*map(jnp.asarray, (m, unk, candc)), None,
+                          *map(jnp.asarray, (flen, rlen, fo, ro)), **kw)
+    got = tf.plain_shortlist(*map(_t, (m, unk, candc, flen, rlen, fo, ro)),
+                             **kw)
+    _check_shortlist(got, want)
+    g = got.numpy()
+    assert (g[1:4, 2 * SL + 1] > 0).all()  # the whole range examined
+    assert g[4, 2 * SL + 1] == 0 and g[4, 2 * SL] == 1  # none: first max
+    if kind == "ea_util":
+        # nine exact ties (o = 5 .. 101): ascending offsets fill the list
+        assert list(g[0, :SL] & 1023) == [q * q + 1 for q in range(2, 10)]
+        assert g[0, 2 * SL + 2] == 9
+
+
+@pytest.mark.parametrize("kind,maxoverlap", KINDS)
+@pytest.mark.parametrize("num_kmers", [0, 2])
+def test_assemble_shortlist_nt_equals_jax(kind, maxoverlap, num_kmers):
+    rng = np.random.default_rng(7 * len(kind) + maxoverlap + num_kmers)
+    L = 128
+    _, _, nt, flen, rlen = _nt_planes(rng, 24, L)
+    fo = rng.integers(0, 3, 24).astype(np.int32)
+    ro = rng.integers(0, 3, 24).astype(np.int32)
+    kw = dict(L=L, O=L, minoverlap=3, maxoverlap=maxoverlap,
+              num_kmers=num_kmers, algo_kind=kind, pmatch=PM,
+              pmismatch=PMM)
+    want = jf.assemble_shortlist_nt(nt, flen, rlen, fo, ro, **kw)
+    got = tf.assemble_shortlist_nt(*map(_t, (nt, flen, rlen, fo, ro)), **kw)
+    _check_shortlist(got, want)
+    assert (got.numpy()[:, 2 * SL + 1] > 0).any()
+
+
+def test_lut_kinds_raise():
+    """pear / rdp_mle score LUT sums (K7), not ported: the dense step
+    refuses them instead of scoring something else."""
+    nt = torch.zeros((2, 64), dtype=torch.int8)
+    lens = torch.full((2,), 50, dtype=torch.int32)
+    with pytest.raises(ValueError, match="count-based"):
+        tf.assemble_shortlist_nt(nt, lens, lens, lens, lens, L=64,
+                                 algo_kind="pear")
+    with pytest.raises(NotImplementedError, match="K7"):
+        tf._shortlist_core(nt, None, None, lens, lens, lens, lens, L=64,
+                           O=64, SL=SL, minoverlap=2, maxoverlap=0,
+                           num_kmers=2, algo_kind="rdp_mle", pmatch=0.0,
+                           pmismatch=0.0, nn=NN, nn_term=0.0, band=None,
+                           lut_match=None, lut_mismatch=None)

@@ -40,7 +40,7 @@ def no_card():
 def test_cuda_request_raises_without_card(no_card, monkeypatch):
     from pandaseq_tpu_torch import runtime
     from pandaseq_tpu_torch.assembler import BatchAssembler
-    from pandaseq_tpu_torch.ops import cand
+    from pandaseq_tpu_torch.ops import cand, dense
 
     with pytest.raises(RuntimeError, match="cuda"):
         BatchAssembler(device="cuda")
@@ -55,7 +55,17 @@ def test_cuda_request_raises_without_card(no_card, monkeypatch):
     frames = torch.zeros((2, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         cand.candidates(frames, frames, 128, "list", 4)
-    assert cand.launch_counts() == {"kmer_frames": 0, "cand": 0}
+    nt = torch.zeros((2, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense.kmer_frames_nt(nt, lens, lens, 128, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense.counts(nt, frames, frames, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense.shortlist(frames, frames, frames, lens, lens, lens, lens,
+                        O=128, SL=8, minoverlap=2, maxoverlap=0,
+                        algo_kind="counts", pmatch=0.0, pmismatch=0.0,
+                        nn=0.0, band=0.01)
+    assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)
 
     env = dict(ENV, PANDASEQ_TORCH_DEVICE="cuda")
     got = run_module("pandaseq_tpu_torch", BASE, env=env)
