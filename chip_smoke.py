@@ -25,7 +25,15 @@ without a result line; no phase is caught.
      reads with N bases and B-cliffs (make_data.py without --fast) and
      on random nibble planes with N runs and low-entropy rows;
      assemble_candidates_nt on the card against native.cand_mask at
-     num_kmers in {1, 2, 3}.
+     num_kmers in {1, 2, 3};
+   - the row blocks of the op-sharded steps: counts and cand over the
+     row blocks of op 2 and 4 against their twins, and summed (counts) or
+     ORed (cand masks) against the full-plane kernel, exactly;
+   - lut_sums (the pear / rdp_mle LUT sums) against its twin bit for bit
+     (0 ulp), over the full plane and the row blocks of op 2 and 4, on
+     the generated reads with N (their own qual planes, stale tails
+     included) and on random nibble planes with random quals; the LUT
+     kind of the shortlist kernel against its twin.
 3. The port CLI end to end against the native host engine
    (PANDASEQ_TPU_ENGINE=host; the cuda runs pin the device engine with
    PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
@@ -43,7 +51,27 @@ without a result line; no phase is caught.
      the measured host and device ms; its launch check leaves out the
      probe's own runtime.PROBE_RUNS launches of each sparse kernel.
    Pairs/s of both engines beside the card's line.
-4. The card's line, the kernels' JSON line, and the result line.
+4. The mesh engine (parallel/shard.py) on one card: BatchAssembler with
+   make_mesh(devices=["cuda:0"] * 4, dp=2, op=2) through emit_stream on
+   the 500,000 pairs, for the defaults and -k 0, and with a dp-only mesh
+   (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
+   phase 3, STAT counters equal to the host engine's through the same
+   emit_stream loop (which, with the single-device cuda engine, is also
+   timed there), and the launches the split implies (frames and cand / counts
+   once per mesh cell of a split batch, shortlist once per dp row, an
+   unsplit batch once). Then the pear / rdp_mle library path:
+   make_sharded_step on the (2, 2) mesh at B=8192, Lb=O=256 against the
+   single-device assemble_shortlist: examined equal, and the shortlist
+   sets equal on every row whose SL-th and SL+1-th scores are apart by
+   more than the f32 summation bound; assemble_shortlist_packed (the
+   [B, 3L] single upload) equal to assemble_shortlist. Pairs/s beside the
+   card's line.
+5. Two-process run_distributed on the card: two OS processes on cuda:0,
+   torch.distributed over gloo on localhost, claiming the 500,000 pairs'
+   batches round-robin; the union of their part files' records equals
+   the single-process run's, and both ranks' reduced counter vectors
+   equal each other and the single-process vector.
+6. The card's line, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -71,17 +99,23 @@ READ_SPEC = {256: ("250", "300", "460"), 384: ("380", "400", "700"),
              512: ("450", "500", "850")}  # read length, amplicon range
 SPARSE = ("kmer_frames", "cand")
 DENSE = ("kmer_frames_nt", "counts", "shortlist")
-KERNELS = SPARSE + DENSE
+LUT = DENSE + ("lut_sums",)  # the pear / rdp_mle library path
+KERNELS = SPARSE + LUT
 REPLACES = {"kmer_frames": "pandaseq_tpu/ops/fused2.py:119",
             "cand": "pandaseq_tpu/ops/pallas_cand.py:117",
             "kmer_frames_nt": "pandaseq_tpu/ops/fused2.py:108",
             "counts": "pandaseq_tpu/ops/fused2.py:190",
-            "shortlist": "pandaseq_tpu/ops/fused2.py:267"}
+            "shortlist": "pandaseq_tpu/ops/fused2.py:267",
+            "lut_sums": "pandaseq_tpu/ops/fused2.py:218"}
 SOURCES = {"kmer_frames": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
            "cand": "pandaseq_tpu_torch/csrc/cand.cu",
            "kmer_frames_nt": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
            "counts": "pandaseq_tpu_torch/csrc/counts.cu",
-           "shortlist": "pandaseq_tpu_torch/csrc/shortlist.cu"}
+           "shortlist": "pandaseq_tpu_torch/csrc/shortlist.cu",
+           "lut_sums": "pandaseq_tpu_torch/csrc/lut_sums.cu"}
+OPS = (2, 4)  # op widths of the row-block checks
+LUT_ALGOS = ("pear", "rdp_mle")
+MESHES = ((2, 2), (2, 1))  # (dp, op) of the mesh runs, all on cuda:0
 # the dense kernel is held to its twin on the f32 score columns within
 # this many ulp (logf of the card against torch.log of the card); the
 # integer columns are exact
@@ -185,6 +219,36 @@ def say_times(times, names, Lb, k):
             "(CUDA events)" % (name, B, Lb, k, ms, pms))
 
 
+def row_blocks(O, op):
+    Oj = O // op
+    return [(j0, Oj) for j0 in range(0, O, Oj)]
+
+
+def cand_blocks(Fk, Rk, O, what, errs, times=None):
+    """cand's mask over the row blocks of op 2 and 4 against the twin,
+    and ORed against the full-plane kernel, exactly; with ``times``, the
+    CUDA-event times of the block [0, O/2) and its twin."""
+    import torch
+
+    from pandaseq_tpu_torch.ops import cand, fused2
+    full = cand.candidates(Fk, Rk, O, "mask", C)
+    for op in OPS:
+        acc = torch.zeros_like(full)
+        for j0, Oj in row_blocks(O, op):
+            got = cand.candidates(Fk, Rk, O, "mask", C, j0, Oj)
+            errs["cand"] = max(errs["cand"], exact(
+                got, fused2.plain_candidates(Fk, Rk, O, "mask", C, j0, Oj),
+                "%s cand rows [%d, %d)" % (what, j0, j0 + Oj)))
+            acc |= got
+        exact(acc, full, "%s cand op=%d OR vs the full plane" % (what, op))
+    if times is not None:
+        times[("cand", "rows", O)] = ms, pms = paired_ms(
+            lambda: fused2.plain_candidates(Fk, Rk, O, "mask", C, 0, O // 2),
+            lambda: cand.candidates(Fk, Rk, O, "mask", C, 0, O // 2))
+        say("time cand rows [0, %d) B=%d O=%d: kernel %.4f ms, plain %.4f "
+            "ms (CUDA events)" % (O // 2, B, O, ms, pms))
+
+
 def sparse_kernels(Lb, batch, rng, errs, times):
     """kmer_frames and cand against their twins (and native.cand_mask)
     on generated reads and random planes."""
@@ -240,6 +304,11 @@ def sparse_kernels(Lb, batch, rng, errs, times):
             else:
                 say("%s: kernels == plain, %d rows with count > %d"
                     % (what, over, C))
+            if k == 2:
+                cand_blocks(Fk, Rk, O, what, errs,
+                            times if tag == "reads" else None)
+                say("%s: cand row blocks of op %s == plain, OR == full"
+                    % (what, "/".join(map(str, OPS))))
         if tag == "reads":
             Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
             times[("kmer_frames", Lb)] = paired_ms(
@@ -320,6 +389,10 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
             for g, w, name in zip(got, want, ("m", "unk", "candc")):
                 errs["counts"] = max(errs["counts"],
                                      exact(g, w, "%s %s" % (what, name)))
+            if k == 2:
+                counts_blocks(nt, Fk, Rk, O, got, what, errs,
+                              times if tag == "reads" else None)
+                cand_blocks(Fk, Rk, O, what + " nt", errs)
             bands = []
             for kind, (pm, pmm) in params.items():
                 kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=maxoverlap,
@@ -366,9 +439,124 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
             say_times(times, DENSE, Lb, 0)
 
 
+def counts_blocks(nt, Fk, Rk, O, full, what, errs, times=None):
+    """counts over the row blocks of op 2 and 4 against the twin, and
+    summed against the full-plane kernel, exactly; with ``times``, the
+    CUDA-event times of the block [0, O/2) and its twin."""
+    import torch
+
+    from pandaseq_tpu_torch.ops import dense, fused2
+    for op in OPS:
+        sums = [torch.zeros_like(x) for x in full]
+        for j0, Oj in row_blocks(O, op):
+            got = dense.counts(nt, Fk, Rk, O, j0, Oj)
+            want = fused2.plain_counts(nt, Fk, Rk, O, j0, Oj)
+            for acc, g, w in zip(sums, got, want):
+                errs["counts"] = max(errs["counts"], exact(
+                    g, w, "%s counts rows [%d, %d)" % (what, j0, j0 + Oj)))
+                acc += g
+        for acc, f in zip(sums, full):
+            exact(acc, f, "%s counts op=%d sum vs the full plane"
+                  % (what, op))
+    say("%s: counts row blocks of op %s == plain, sum == full"
+        % (what, "/".join(map(str, OPS))))
+    if times is not None:
+        times[("counts", "rows", O)] = ms, pms = paired_ms(
+            lambda: fused2.plain_counts(nt, Fk, Rk, O, 0, O // 2),
+            lambda: dense.counts(nt, Fk, Rk, O, 0, O // 2))
+        say("time counts rows [0, %d) B=%d O=%d: kernel %.4f ms, plain %.4f "
+            "ms (CUDA events)" % (O // 2, B, O, ms, pms))
+
+
+def _lut_params():
+    """{kind: (lut_match, lut_mismatch, nn_term)} as the engine builds
+    them (f64 tables)."""
+    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    out = {}
+    for name in LUT_ALGOS:
+        cfg = oracle.OracleConfig()
+        cfg.algorithm = oracle.make_algorithm(name, None)
+        asm = BatchAssembler(cfg, device=DEVICE)
+        out[name] = (asm._lut_m, asm._lut_mm, asm._nn_term)
+    return out
+
+
+def ulps(got, want, what):
+    """Exits unless two f32 tensors are equal bit for bit; returns 0."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SystemExit("%s: shape/dtype %s %s vs %s %s" % (
+            what, tuple(got.shape), got.dtype, tuple(want.shape),
+            want.dtype))
+    diff = (got.view(torch.int32).to(torch.int64)
+            - want.view(torch.int32).to(torch.int64)).abs()
+    if int(diff.max()):
+        raise SystemExit("%s: lut_sums != plain on %d values, up to %d ulp"
+                         % (what, int((diff != 0).sum()), int(diff.max())))
+    return 0
+
+
+def lut_kernels(Lb, batch, rng, luts, errs, times):
+    """lut_sums against its twin (full plane and row blocks, bit for bit)
+    and the LUT kind of the shortlist against its twin, on generated
+    reads with N and their qual planes and on random planes."""
+    import numpy as np
+    import torch
+
+    from pandaseq_tpu_torch.ops import dense, fused2
+
+    dev = torch.device(DEVICE)
+    O = Lb
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nt_x, fl_x, rl_x = _nt_random(rng, Lb)
+    cases = [("reads", batch.nt_packed()[:, :Lb], batch.fwd_q[:, :Lb],
+              batch.rev_q[:, :Lb], batch.flen, batch.rlen),
+             ("random", nt_x, rng.integers(-3, 50, (B, Lb)).astype(np.int8),
+              rng.integers(-3, 50, (B, Lb)).astype(np.int8), fl_x, rl_x)]
+    zeros = t(np.zeros(B, np.int32))
+    for tag, *arrays in cases:
+        nt, fq, rq, fl, rl = map(t, arrays)
+        Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, 2)
+        counts = dense.counts(nt, Fk, Rk, O)
+        for kind, (tm64, tmm64, nn_term) in luts.items():
+            what = "Lb=O=%d %s %s" % (Lb, kind, tag)
+            tm, tmm = (fused2.lut_table(x, dev) for x in (tm64, tmm64))
+            args = (nt, fq, rq, fl, rl, O, kind, tm, tmm, nn_term)
+            full = dense.lut_sums(*args)
+            ulps(full, fused2.plain_lut_sums(*args), what)
+            for op in OPS:
+                for j0, Oj in row_blocks(O, op):
+                    ulps(dense.lut_sums(*args, j0, Oj),
+                         fused2.plain_lut_sums(*args, j0, Oj),
+                         "%s rows [%d, %d)" % (what, j0, j0 + Oj))
+            kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=0,
+                      algo_kind=kind, pmatch=0.0, pmismatch=0.0, nn=0.0,
+                      band=fused2.BAND_LUT, lutsum=full)
+            err, ulp = shortlist_err(
+                dense.shortlist(*counts, fl, rl, zeros, zeros, **kw),
+                fused2.plain_shortlist(*counts, fl, rl, zeros, zeros, **kw),
+                what + " shortlist")
+            errs["shortlist"] = max(errs["shortlist"], err)
+            errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
+            say("%s: lut_sums == plain (0 ulp) over the full plane and the "
+                "row blocks of op %s; LUT shortlist == plain"
+                % (what, "/".join(map(str, OPS))))
+        if tag == "reads":
+            tm, tmm = (fused2.lut_table(x, dev) for x in luts["pear"][:2])
+            args = (nt, fq, rq, fl, rl, O, "pear", tm, tmm,
+                    luts["pear"][2])
+            times[("lut_sums", Lb)] = ms, pms = paired_ms(
+                lambda: fused2.plain_lut_sums(*args),
+                lambda: dense.lut_sums(*args))
+            say("time lut_sums B=%d Lb=O=%d pear: kernel %.4f ms, plain "
+                "%.4f ms (CUDA events)" % (B, Lb, ms, pms))
+
+
 def phase_kernels(tmp, errs):
     """Phase 2: every kernel == its plain twin on the card; returns
-    {(kernel, Lb): (ms, plain_ms)}."""
+    ({(kernel, Lb): (ms, plain_ms)}, the Lb=256 batch with N, the LUT
+    parameters)."""
     import numpy as np
 
     from pandaseq_tpu.assembler import make_batch
@@ -384,14 +572,18 @@ def phase_kernels(tmp, errs):
             make_data(os.path.join(tmp, "k%d" % Lb), "--fast", *spec),
             make_data(os.path.join(tmp, "n%d" % Lb), *spec))
     params = _score_params()
+    luts = _lut_params()
     times = {}
     for Lb in SHAPES:
         fast, with_n = (wait_data(s) for s in started[Lb])
         sparse_kernels(Lb, make_batch(list(fq.read_pairs(*fast)), Lb), rng,
                        errs, times)
-        dense_kernels(Lb, make_batch(list(fq.read_pairs(*with_n)), Lb), rng,
-                      params, errs, times)
-    return times
+        batch_n = make_batch(list(fq.read_pairs(*with_n)), Lb)
+        dense_kernels(Lb, batch_n, rng, params, errs, times)
+        lut_kernels(Lb, batch_n, rng, luts, errs, times)
+        if Lb == 256:
+            batch_256 = batch_n
+    return times, batch_256, luts
 
 
 def _norm_log(path):
@@ -449,9 +641,11 @@ def expect_counts(path, n_batches):
     return {name: n_batches if name in path else 0 for name in KERNELS}
 
 
-def compare_engines(label, f1, f2, sub, order, path, card, extra=()):
+def compare_engines(label, f1, f2, sub, order, path, card, extra=(),
+                    keep=False):
     """Runs the CLI in the given engine order; every run's FASTA and
-    log equal the first's. Returns the first cuda run's launch counts."""
+    log equal the first's. Returns the first cuda run's launch counts
+    (and, with ``keep``, the path of the FASTA all runs gave)."""
     secs = {"cuda": [], "host": []}
     ref = None
     main_counts = None
@@ -485,7 +679,11 @@ def compare_engines(label, f1, f2, sub, order, path, card, extra=()):
         "equal: %s" % (label, ref[2], len(order), os.path.getsize(ref[0]),
                        ", ".join(s.split("\t", 1)[1].replace("\t", "=")
                                  for s in stats)))
-    os.remove(ref[0])
+    if keep:  # under its own name: a later run reuses the run tags
+        kept = os.path.join(sub, re.sub(r"\W+", "_", label) + ".fa")
+        os.replace(ref[0], kept)
+    else:
+        os.remove(ref[0])
     rate = {e: ref[2] * len(t) / sum(t) for e, t in secs.items()}
     say("%s: each cuda run launched %s once per batch (%d); cuda %.1f "
         "pairs/s (runs %s s), host %.1f pairs/s (runs %s s) on %s"
@@ -493,7 +691,7 @@ def compare_engines(label, f1, f2, sub, order, path, card, extra=()):
            rate["cuda"], ", ".join("%.3f" % t for t in secs["cuda"]),
            rate["host"], ", ".join("%.3f" % t for t in secs["host"]),
            card))
-    return main_counts
+    return (main_counts, kept) if keep else main_counts
 
 
 def phase_probe(f1, f2, tmp):
@@ -531,7 +729,8 @@ def phase_probe(f1, f2, tmp):
 def phase_e2e(tmp, card):
     """Phase 3: cuda engine == native host engine, end to end; returns
     the launch counts of the first cuda run of each path (the main
-    paths': the default sparse path and the -k 0 dense path)."""
+    paths': the default sparse path and the -k 0 dense path), the 500k
+    stream's FASTQ pair and its FASTA of each path."""
     subs = {}
     started = {}
     for name, args in (
@@ -544,14 +743,15 @@ def phase_e2e(tmp, card):
     data = {name: wait_data(s) for name, s in started.items()}
     turns = ("cuda", "host", "host", "cuda")
     counts = {}
-    counts["sparse"] = compare_engines(
+    fasta = {}
+    counts["sparse"], fasta["sparse"] = compare_engines(
         "%d 2x250" % E2E_PAIRS, *data["big"], subs["big"], turns, SPARSE,
-        card)
+        card, keep=True)
     compare_engines("200-pair N/B-cliff", *data["n200"], subs["n200"],
                     ("cuda", "host"), SPARSE, card)
-    counts["dense"] = compare_engines(
+    counts["dense"], fasta["dense"] = compare_engines(
         "%d 2x250 -k 0" % E2E_PAIRS, *data["big"], subs["big"], turns,
-        DENSE, card, ("-k", "0"))
+        DENSE, card, ("-k", "0"), keep=True)
     for algo in ("uparse", "ea_util", "flash", "stitch"):
         compare_engines("%d 2x250 -k 0 -A %s" % (ALGO_PAIRS, algo),
                         *data["algo"], subs["algo"], turns, DENSE, card,
@@ -559,7 +759,284 @@ def phase_e2e(tmp, card):
     compare_engines("200-pair N/B-cliff -k 0", *data["n200"], subs["n200"],
                     ("cuda", "host"), DENSE, card, ("-k", "0"))
     phase_probe(*data["n200"], tmp)
-    return counts
+    return counts, data["big"], fasta
+
+
+def emit_run(asm, f1, f2, out_path):
+    """The CLI's byte path driven from the library: emit_stream over the
+    native reader with the _pre stage on the prefetch thread, at the
+    CLI's batch, ring and depth. Returns (seconds, batch sizes, STAT
+    counters)."""
+    from pandaseq_tpu.io import native
+    from pandaseq_tpu.io.prefetch import prefetch
+
+    reader = native.NativeBatchReader(f1, f2, batch=CLI_BATCH, L=512,
+                                      ring=25)
+    sizes = []
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out:
+        for _, codes, payload in asm.emit_stream(
+                prefetch(asm.pre_stream(reader)), fmt="fasta", depth=10,
+                threaded=True):
+            out.write(payload)
+            sizes.append(len(codes))
+    dt = time.perf_counter() - t0
+    c = asm.counters
+    return dt, sizes, (c.count, c.ok, c.noalgn, c.lowq, c.badread, c.slow,
+                       c.nofp, c.norp, sorted(c.overlaps.items()))
+
+
+def mesh_launches(sizes, dp, op, path):
+    """The launches a (dp, op) mesh implies: a batch of B pairs splits
+    over dp when B % dp == 0; a split batch launches the frames and cand /
+    counts once per mesh cell (once per dp row when op == 1) and the
+    shortlist once per dp row; an unsplit batch launches each once."""
+    want = dict.fromkeys(KERNELS, 0)
+    for n in sizes:
+        rows = dp if n % dp == 0 else 1
+        cells = rows * op if n % dp == 0 else 1
+        for name in path:
+            want[name] += rows if name == "shortlist" else cells
+    return want
+
+
+def lut_mesh_step(mesh, batch, luts):
+    """The pear / rdp_mle library path on the mesh: make_sharded_step at
+    B=8192, Lb=O=256 against the single-device assemble_shortlist on the
+    card. Returns the launch counts of the path's run (both kinds, the
+    sharded and the single-device steps)."""
+    import numpy as np
+    import torch
+
+    from pandaseq_tpu_torch.ops import cand, dense, fused2
+    from pandaseq_tpu_torch.parallel import shard
+
+    dev = torch.device(DEVICE, 0)
+    Lb = 256
+    zeros = np.zeros(B, np.int32)
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        batch.nt_packed()[:, :Lb], batch.fwd_q[:, :Lb], batch.rev_q[:, :Lb],
+        batch.flen, batch.rlen, zeros, zeros)]
+    card = [x.to(dev) for x in host]
+    out = {}
+    cand.reset_launch_counts()
+    for kind, (tm, tmm, nn) in luts.items():
+        kw = dict(L=Lb, algo_kind=kind, nn_term=nn, lut_match=tm,
+                  lut_mismatch=tmm)
+        out[kind] = (shard.make_sharded_step(mesh, **kw)(*host),
+                     fused2.assemble_shortlist(*card, **kw))
+    torch.cuda.synchronize()
+    launched = cand.launch_counts()
+    cells = mesh.shape["dp"] * mesh.shape["op"]
+    n = len(luts)
+    want = dict(dict.fromkeys(KERNELS, 0), kmer_frames_nt=n * (cells + 1),
+                counts=n * (cells + 1), lut_sums=n * (cells + 1),
+                shortlist=n * (mesh.shape["dp"] + 1))
+    if launched != want:
+        raise SystemExit("LUT library path launched %s, expected %s"
+                         % (launched, want))
+    for kind, (tm, tmm, nn) in luts.items():
+        sharded, single = (x.cpu().numpy() for x in out[kind])
+        kw = dict(L=Lb, algo_kind=kind, nn_term=nn, lut_match=tm,
+                  lut_mismatch=tmm)
+        wide = fused2.assemble_shortlist(*card, SL=SL + 1, **kw).cpu().numpy()
+        # per row: 2e-5 * sum|term| + 1e-6 over its diagonals bounds an
+        # f32 sum taken in another order
+        abs_sums = dense.lut_sums(
+            *card[:5], Lb, kind, fused2.lut_table(np.abs(tm), dev),
+            fused2.lut_table(np.abs(tmm), dev), abs(nn))
+        bound = (2e-5 * abs_sums.max(dim=1).values + 1e-6).cpu().numpy()
+        # the [B, 3L] single-upload form: the same kernels on the same
+        # columns, so exactly the single-device result
+        packed = fused2.assemble_shortlist_packed(
+            torch.cat(card[:3], dim=1), *card[3:], **kw).cpu().numpy()
+        if not (packed == single).all():
+            raise SystemExit("%s: assemble_shortlist_packed differs from "
+                             "assemble_shortlist on %d rows" % (
+                                 kind, int((packed != single).any(1).sum())))
+        if not (sharded[:, 2 * SL + 1] == single[:, 2 * SL + 1]).all():
+            raise SystemExit("%s sharded step: examined differs" % kind)
+        scores = wide[:, SL + 1:2 * SL + 2].view(np.float32).astype(
+            np.float64)
+        # apart: the SL-th and SL+1-th scores differ by more than the
+        # bound, or there is no SL+1-th candidate (the -3e38 sentinel)
+        apart = ((scores[:, SL - 1] - scores[:, SL] > 2 * bound)
+                 | (scores[:, SL] < -1e38))
+        same = (np.sort(sharded[:, :SL], axis=1)
+                == np.sort(single[:, :SL], axis=1)).all(axis=1)
+        if not same[apart].all():
+            raise SystemExit("%s sharded step: shortlist sets differ on %d "
+                             "rows whose scores are apart" % (
+                                 kind, int((~same[apart]).sum())))
+        say("mesh dp=%d op=%d: make_sharded_step(%s) B=%d Lb=O=%d == "
+            "single-device assemble_shortlist: examined equal, shortlist "
+            "sets equal on %d of %d rows (%d rows with a near-tie at the "
+            "SL-th score, of which %d differ); assemble_shortlist_packed == "
+            "assemble_shortlist" % (
+                mesh.shape["dp"], mesh.shape["op"], kind, B, Lb,
+                int(same.sum()), B, int((~apart).sum()),
+                int((~same[~apart]).sum())))
+    return launched
+
+
+def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
+    """Phase 4: the mesh engine on one card against the CLI runs of
+    phase 3 and the host engine; then the LUT library path on the mesh.
+    Returns the LUT path's launch counts."""
+    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    from pandaseq_tpu_torch.ops import cand
+    from pandaseq_tpu_torch.parallel import shard
+
+    sub = os.path.join(tmp, "mesh")
+    os.makedirs(sub)
+    out = os.path.join(sub, "run.fa")
+    # no engine pin: the mesh itself pins the device engine
+    os.environ.pop("PANDASEQ_TPU_ENGINE", None)
+    os.environ.pop("PANDASEQ_TPU_HOST", None)
+    cuda0 = "%s:0" % DEVICE
+    for path_name, k, path, meshes in (("sparse", 2, SPARSE, MESHES),
+                                       ("dense", 0, DENSE, MESHES[:1])):
+        label = "%d 2x250%s" % (E2E_PAIRS, " -k 0" if k == 0 else "")
+        cfg = oracle.OracleConfig(num_kmers=k)
+        dt_h, _, host_counters = emit_run(
+            BatchAssembler(cfg, device=DEVICE, host_only=True), f1, f2, out)
+        if not filecmp.cmp(out, fasta[path_name], shallow=False):
+            raise SystemExit("%s: host engine through emit_stream differs "
+                             "from the CLI's FASTA" % label)
+        cand.reset_launch_counts()
+        dt_1, sizes, counters = emit_run(
+            BatchAssembler(cfg, device=DEVICE, host_only=False), f1, f2, out)
+        if (cand.launch_counts() != mesh_launches(sizes, 1, 1, path)
+                or counters != host_counters
+                or not filecmp.cmp(out, fasta[path_name], shallow=False)):
+            raise SystemExit("%s: the single-device cuda engine through "
+                             "emit_stream differs" % label)
+        say("%s through emit_stream on %s: host engine %.1f pairs/s "
+            "(%.3f s), single-device cuda engine %.1f pairs/s (%.3f s), "
+            "FASTA and STAT equal" % (label, card, E2E_PAIRS / dt_h, dt_h,
+                                      E2E_PAIRS / dt_1, dt_1))
+        for dp, op in meshes:
+            mesh = shard.make_mesh(devices=[cuda0] * (dp * op), dp=dp, op=op)
+            asm = BatchAssembler(cfg, mesh=mesh)
+            if asm.engine != DEVICE or asm.engine_info != {"reason": "mesh"}:
+                raise SystemExit("mesh engine resolved to %s (%s)"
+                                 % (asm.engine, asm.engine_info))
+            cand.reset_launch_counts()
+            dt, sizes, counters = emit_run(asm, f1, f2, out)
+            launched = cand.launch_counts()
+            want = mesh_launches(sizes, dp, op, path)
+            if launched != want:
+                raise SystemExit("%s mesh dp=%d op=%d launched %s, expected "
+                                 "%s" % (label, dp, op, launched, want))
+            if not filecmp.cmp(out, fasta[path_name], shallow=False):
+                raise SystemExit("%s mesh dp=%d op=%d: FASTA differs from "
+                                 "the CLI runs'" % (label, dp, op))
+            if counters != host_counters:
+                raise SystemExit("%s mesh dp=%d op=%d: STAT %s, host engine "
+                                 "%s" % (label, dp, op, counters[:8],
+                                         host_counters[:8]))
+            split = sum(n % dp == 0 for n in sizes)
+            say("%s mesh dp=%d op=%d on one card: FASTA == the CLI runs' "
+                "(%d bytes), STAT == the host engine's (%s), launched %s "
+                "over %d batches (%d split); %.1f pairs/s (%.3f s) on %s"
+                % (label, dp, op, os.path.getsize(out), counters[:8],
+                   {n: c for n, c in launched.items() if c}, len(sizes),
+                   split, E2E_PAIRS / dt, dt, card))
+        os.remove(fasta[path_name])
+    os.remove(out)
+    mesh = shard.make_mesh(devices=[cuda0] * 4, dp=2, op=2)
+    return lut_mesh_step(mesh, batch_256, luts)
+
+
+_DIST_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from pandaseq_tpu_torch.parallel import distributed as D
+perf = {}
+vec, hist = D.run_distributed([(sys.argv[2], sys.argv[3])],
+                              out_dir=sys.argv[4], batch=int(sys.argv[5]),
+                              perf_out=perf)
+print("RESULT " + json.dumps({"vec": [int(x) for x in vec],
+                              "hist": sorted(hist.items()), "perf": perf}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _records(path):
+    with open(path, "rb") as fh:
+        return fh.read().split(b">")[1:]
+
+
+def phase_distributed(tmp, card, f1, f2):
+    """Phase 5: two OS processes on cuda:0 run run_distributed over gloo
+    in mux mode; their part files' union and reduced vectors against the
+    single-process run."""
+    import socket
+
+    from pandaseq_tpu_torch.parallel import distributed
+
+    sub = os.path.join(tmp, "dist")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    env = dict(os.environ, PANDASEQ_TORCH_DEVICE=DEVICE,
+               PANDASEQ_TPU_ENGINE="tpu", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=port, WORLD_SIZE="2")
+    env.pop("PANDASEQ_TPU_HOST", None)
+    parts = os.path.join(sub, "parts")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_WORKER, ROOT, f1, f2, parts,
+         str(CLI_BATCH)], env=dict(env, RANK=str(rank)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise SystemExit("run_distributed rank %d exited %d:\n%s"
+                             % (rank, p.returncode, o[-3000:]))
+    res = [json.loads(o.rsplit("RESULT ", 1)[1].splitlines()[0])
+           for o in outs]
+    os.environ["PANDASEQ_TPU_ENGINE"] = "tpu"
+    perf = {}
+    vec, hist = distributed.run_distributed(
+        [(f1, f2)], out_dir=os.path.join(sub, "single"), batch=CLI_BATCH,
+        perf_out=perf)
+    single = [int(x) for x in vec]
+    if not res[0]["vec"] == res[1]["vec"] == single:
+        raise SystemExit("reduced vectors: rank 0 %s, rank 1 %s, single "
+                         "process %s" % (res[0]["vec"], res[1]["vec"],
+                                         single))
+    if not res[0]["hist"] == res[1]["hist"] == [list(h) for h in
+                                                sorted(hist.items())]:
+        raise SystemExit("reduced overlap histograms differ")
+    recs = [_records(os.path.join(parts, "part-%05d.fasta" % r))
+            for r in range(2)]
+    if not all(recs):
+        raise SystemExit("a rank wrote no records: %s"
+                         % [len(r) for r in recs])
+    want = _records(os.path.join(sub, "single", "part-00000.fasta"))
+    if sorted(recs[0] + recs[1]) != sorted(want):
+        raise SystemExit("the part files' records differ from the single "
+                         "process's")
+    say("run_distributed, 2 processes on one card over gloo, mux mode: "
+        "%d + %d records == the single process's %d, reduced vectors equal "
+        "(%s); rank pairs/s %s, both ranks %.3f s wall from spawn; single "
+        "process %.1f pairs/s (%.3f s) on %s" % (
+            len(recs[0]), len(recs[1]), len(want), single,
+            ", ".join("%.1f (%d pairs, %.3f s)" % (
+                r["perf"]["pairs_per_sec"], r["perf"]["pairs"],
+                r["perf"]["wall_s"]) for r in res),
+            wall, perf["pairs_per_sec"], perf["wall_s"], card))
 
 
 def main() -> int:
@@ -595,15 +1072,18 @@ def main() -> int:
     errs["shortlist_ulp"] = 0
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
             as tmp:
-        times = phase_kernels(tmp, errs)
+        times, batch_256, luts = phase_kernels(tmp, errs)
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
-        counts = phase_e2e(tmp, card)
+        counts, big, fasta = phase_e2e(tmp, card)
+        counts["lut"] = phase_mesh(tmp, card, *big, fasta, batch_256, luts)
+        phase_distributed(tmp, card, *big)
 
     kernels = []
     for name in KERNELS:
         ms, pms = times[(name, 256)]
-        path = "sparse" if name in SPARSE else "dense"
+        path = ("sparse" if name in SPARSE else "lut" if name == "lut_sums"
+                else "dense")
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": counts[path][name],

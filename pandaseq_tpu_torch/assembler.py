@@ -6,29 +6,39 @@ the 4-bit packed or nibble upload plane, the native ``psq_finalize``,
 the oracle replay of undecided pairs, the pipelines) with only its
 device seams replaced:
 
-* ``__init__`` takes ``device=`` and builds the port's tables (the
-  parent's imports ``ops.fused2`` and with it JAX);
-* ``_launch`` copies the upload plane and the ``[B]`` arrays into pinned
-  host memory, uploads them without blocking, runs the device step's
-  CUDA kernels on the current stream and starts the copy of the result
-  back into pinned memory. It returns a ``_PendingList`` whose
-  ``__array__`` waits on a CUDA event: the finalizer only ever sees
-  numpy arrays, never a CUDA tensor. The sparse path (every built-in
-  algorithm at ``-k >= 1``) runs ``kmer_frames`` -> ``cand`` into a
-  ``[B, 6]`` int16 candidate list (ops/cand.py); the dense path (``-k 0``
-  on the device, custom algorithms at any ``-k``) runs
-  ``kmer_frames_nt`` -> ``counts`` -> ``shortlist`` into a ``[B, 20]``
-  int32 shortlist (ops/dense.py). On a CPU device the plain twins run;
+* ``__init__`` takes ``device=`` or ``mesh=`` (parallel/shard.py) and
+  builds the port's tables (the parent's imports ``ops.fused2`` and with
+  it JAX);
+* ``_launch`` uploads the upload plane and the ``[B]`` arrays from
+  pinned host memory without blocking, runs the device step's CUDA
+  kernels on the current stream and starts the copy of the result back
+  into pinned memory. It returns a ``_PendingList`` whose ``__array__``
+  waits on a CUDA event: the finalizer only ever sees numpy arrays,
+  never a CUDA tensor. The sparse path (every built-in algorithm at
+  ``-k >= 1``) runs ``kmer_frames`` -> ``cand`` into a ``[B, 6]`` int16
+  candidate list (ops/cand.py); the dense path (``-k 0`` on the device,
+  custom algorithms at any ``-k``) runs ``kmer_frames_nt`` -> ``counts``
+  -> ``shortlist`` into a ``[B, 20]`` int32 shortlist (ops/dense.py).
+  pear and rdp_mle never take the dense path: with the native library,
+  which the port requires, they run sparse at every ``-k``, so their
+  LUT sums (``lut_sums``) are reached only through the library entry
+  points (``fused2.assemble_shortlist``, ``shard.make_sharded_step``).
+  On a CPU device the plain twins run;
+* ``_dispatch`` and ``_dispatch_op`` route a batch as the parent's do
+  (the overflow reroute, the sparse / host-only paths, then the mesh):
+  under a mesh whose op axis is wider than 1 (and ``O % op == 0``,
+  ``B % dp == 0``) the op-sharded steps of parallel/shard.py run, the
+  sparse one returning the candidate mask; otherwise the single-device
+  step runs on each dp row's share (``shard.run_dp``), or on the whole
+  batch on the mesh's first device when ``B % dp != 0``;
 * ``_mask_from_list`` takes ``CAND_LIST_C`` from the port;
 * engine resolution keeps the JAX package's order: constructor, then
   ``PANDASEQ_TPU_ENGINE=host|tpu`` (``tpu``, the JAX package's name,
-  pins the device engine), then legacy ``PANDASEQ_TPU_HOST``, then the
+  pins the device engine), then legacy ``PANDASEQ_TPU_HOST``, then a
+  mesh (which pins the device engine, reason ``mesh``), then the
   measured probe (``runtime.pick_engine``).
 
-Not ported yet, and raising instead of running something else: meshes
-(ROADMAP Q1 item 6) and the LUT-scored dense shortlist (K7), which only
-a run without the native library reaches — and the port requires that
-library. The device-offload and host-steal lanes (Q1 item 7) are off, so
+The device-offload and host-steal lanes (ROADMAP Q1 item 7) are off, so
 every batch's device result comes from the kernels.
 """
 
@@ -48,6 +58,7 @@ from pandaseq_tpu.tables import (QUAL_MATCH_PEAR, QUAL_MATCH_SIMPLE_BAYESIAN,
 
 from . import runtime
 from .ops import fused2
+from .parallel import shard
 
 class _PendingList:
     """One launched batch's device result. ``np.asarray`` waits on
@@ -75,8 +86,17 @@ class _PendingList:
         return out
 
 
-def _host(a, dtype):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype))
+def _fetch(out):
+    """The device result ``out`` as a _PendingList: a CPU tensor as it
+    is; from a card, a non-blocking copy into pinned host memory and the
+    event that completes it."""
+    if out.device.type == "cpu":
+        return _PendingList(out)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event(blocking=True)
+    event.record(torch.cuda.current_stream(out.device))
+    return _PendingList(host, event, out)
 
 
 class BatchAssembler(_BatchAssembler):
@@ -86,15 +106,24 @@ class BatchAssembler(_BatchAssembler):
     def __init__(self, cfg: OracleConfig | None = None, L: int = 512,
                  modules=(), need_p: bool | None = None, mesh=None,
                  host_only: bool | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU sharding is not ported to PyTorch yet (ROADMAP "
-                "Q1 item 6)")
         if _native.get_lib() is None:
             raise RuntimeError(
                 "the native host library (native/psq_io.cpp) did not "
                 "build; the port needs g++, zlib and libbz2")
-        self.device = runtime.resolve_device(device)
+        if mesh is None:
+            self.device = runtime.resolve_device(device)
+            # the single device as a 1x1 grid: _launch runs on it
+            self._grid = shard.Mesh([[self.device]])
+        else:
+            if not isinstance(mesh, shard.Mesh):
+                raise TypeError("mesh must be a parallel.shard.Mesh "
+                                "(make_mesh)")
+            if device is not None and \
+                    torch.device(device).type != mesh.first.type:
+                raise ValueError(f"device {device} is not of the mesh's "
+                                 f"type ({mesh.first.type})")
+            self.device = mesh.first
+            self._grid = mesh
         # from here on, pandaseq_tpu.assembler.BatchAssembler.__init__
         # with the port's tables
         assert self.SL <= 32, "shortlist width exceeds the native bound"
@@ -102,7 +131,7 @@ class BatchAssembler(_BatchAssembler):
         self.L = L
         self.modules = list(modules)
         self.counters = Counters()
-        self.mesh = None
+        self.mesh = mesh
         self._op_steps = {}
         self.need_p = bool(need_p)
         self._host_only = host_only
@@ -161,9 +190,9 @@ class BatchAssembler(_BatchAssembler):
     def _resolve_host_only(self) -> bool:
         """Engine resolution, lazy at first dispatch. Priority:
         constructor host_only > PANDASEQ_TPU_ENGINE=host|tpu (tpu pins
-        the device engine) > legacy PANDASEQ_TPU_HOST > the measured
-        probe (runtime.pick_engine: the device step against the native
-        twin, cached per environment)."""
+        the device engine) > legacy PANDASEQ_TPU_HOST > a mesh (pins
+        the device engine) > the measured probe (runtime.pick_engine: the
+        device step against the native twin, cached per environment)."""
         if self._host_only is None:
             legacy = os.environ.get("PANDASEQ_TPU_HOST")
             env = os.environ.get("PANDASEQ_TPU_ENGINE", "")
@@ -173,6 +202,9 @@ class BatchAssembler(_BatchAssembler):
             elif legacy is not None:
                 self._host_only = legacy not in ("0", "")
                 self.engine_info = {"reason": "env-legacy"}
+            elif self.mesh is not None:
+                self._host_only = False  # sharded runs pin the device
+                self.engine_info = {"reason": "mesh"}
             else:
                 eng, info = runtime.pick_engine(
                     self.device, num_kmers=min(max(self.cfg.num_kmers, 1),
@@ -195,9 +227,46 @@ class BatchAssembler(_BatchAssembler):
         return False  # host-steal lane: ROADMAP Q1 item 7
 
     # -- the device step -----------------------------------------------
+    def _dispatch(self, st):
+        """Stage 1 (pandaseq_tpu/assembler.py:1213, with the mesh in the
+        port's terms): the overflow reroute, then the host-only sparse
+        path, then the op-sharded step (``_dispatch_op``) where the mesh
+        has an op axis wider than 1, ``O % op == 0`` and ``B % dp ==
+        0``, else the single-device step (``_launch``). Returns a
+        _PendingList or a host array — never blocks on the device."""
+        batch = st["batch"]
+        Lb = st["Lb"]
+        if st["O_full"] > st["O"]:
+            return self._overflow_host(st)
+        sparse, lut = self._sparse_mode()
+        st["plane_kind"] = 1 if sparse else 0
+        plane = None
+        if sparse:
+            if self._resolve_host_only():
+                return self._sparse_host(st)
+            plane = self._sparse_plane(st)
+        use_op = False
+        if self.mesh is not None:
+            n_op = self.mesh.shape["op"]
+            use_op = (n_op > 1 and st["O"] % n_op == 0
+                      and st["B"] % self.mesh.shape["dp"] == 0)
+        fo32 = st["fo"].astype(np.int32)
+        ro32 = st["ro"].astype(np.int32)
+        if use_op:
+            return self._dispatch_op(st, batch, lambda a: self._cut(a, Lb),
+                                     sparse, (plane, batch.flen, batch.rlen),
+                                     fo32, ro32)
+        if not sparse:
+            plane = self._dense_plane(st, lut)
+        if sparse and self._cand_list:
+            st["cand_list"] = True  # _launch ships the list download
+        return self._launch(sparse, lut, plane, batch.flen, batch.rlen,
+                            fo32, ro32, Lb, st["O"])
+
     def _launch(self, sparse, lut, plane, flen, rlen, fo32, ro32, Lb, O):
         """The device step on already-built host arrays: the candidate
-        search (sparse) or the dense shortlist; returns a _PendingList,
+        search (sparse) or the dense shortlist, on each dp row's share
+        of the batch (one row without a mesh); returns a _PendingList,
         never a device tensor."""
         cfg = self.cfg
         if sparse:
@@ -207,7 +276,9 @@ class BatchAssembler(_BatchAssembler):
             args = ((plane, np.int8), (flen, np.int32), (rlen, np.int32))
             kw = dict(L=Lb, O=O, num_kmers=cfg.num_kmers)
         elif lut:
-            raise NotImplementedError(fused2.LUT_MSG)
+            raise NotImplementedError(
+                "the engine runs pear / rdp_mle sparse; their dense step "
+                "is fused2.assemble_shortlist")
         else:
             step = fused2.assemble_shortlist_nt
             args = ((plane, np.int8), (flen, np.int32), (rlen, np.int32),
@@ -216,18 +287,39 @@ class BatchAssembler(_BatchAssembler):
                       maxoverlap=cfg.maxoverlap, num_kmers=cfg.num_kmers,
                       algo_kind=self._algo_kind, pmatch=self._pmatch,
                       pmismatch=self._pmismatch)
-        hosts = [_host(a, dt) for a, dt in args]
-        if self.device.type == "cpu":
-            return _PendingList(step(*hosts, **kw))
-        dev = self.device
-        hosts = [h.pin_memory() for h in hosts]
-        devs = [h.to(dev, non_blocking=True) for h in hosts]
-        out = step(*devs, **kw)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event(blocking=True)
-        event.record(torch.cuda.current_stream(dev))
-        return _PendingList(host, event, (*hosts, *devs, out))
+        arrays = [np.ascontiguousarray(a, dt) for a, dt in args]
+        return _fetch(shard.run_dp(self._grid, lambda *a: step(*a, **kw),
+                                   arrays))
+
+    def _dispatch_op(self, st, batch, cut, sparse, inputs, fo32, ro32):
+        """Overlap-plane-row ("op")-sharded dispatch for a (dp, op) mesh
+        (pandaseq_tpu/assembler.py:1381): the sharded steps of
+        parallel/shard.py add exact integer partial diagonal sums (OR the
+        partial masks), so the output equals the single-device step's.
+        The sparse step returns the candidate mask, not the list."""
+        cfg = self.cfg
+        Lb, O = st["Lb"], st["O"]
+        key = ("cand4" if sparse else self._algo_kind, Lb, O)
+        step = self._op_steps.get(key)
+        if sparse:
+            if step is None:
+                step = shard.make_sharded_cand_step_packed4(
+                    self.mesh, L=Lb, O=O, num_kmers=cfg.num_kmers)
+                self._op_steps[key] = step
+            plane, flen, rlen = inputs
+            return _fetch(step(np.ascontiguousarray(plane, np.int8),
+                               flen, rlen))
+        if step is None:
+            step = shard.make_sharded_step(
+                self.mesh, L=Lb, O=O, SL=self.SL,
+                minoverlap=cfg.minoverlap, maxoverlap=cfg.maxoverlap,
+                num_kmers=cfg.num_kmers, algo_kind=self._algo_kind,
+                pmatch=self._pmatch, pmismatch=self._pmismatch)
+            self._op_steps[key] = step
+        # the count kinds read no quals (the LUT kinds run sparse)
+        return _fetch(step(*shard.shard_batch(self.mesh, (
+            cut(batch.nt_packed()), None, None, batch.flen, batch.rlen,
+            fo32, ro32))))
 
     def _mask_from_list(self, st, lst):
         """Rebuild the [B, O//32] candidate bitmask from the device's

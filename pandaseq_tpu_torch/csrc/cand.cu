@@ -9,8 +9,12 @@
 //
 // For each pair b, offset o = t+1 (t < O) is a candidate iff some
 // stored forward k-mer Fkm[b, j] equals an emitted reverse k-mer
-// Rkm[b, i] with j + i = t. The TPU kernels count the hits per diagonal
-// through the matrix unit and then test count != 0; the engine reads
+// Rkm[b, i] with j + i = t, over the plane rows j in [j0, j0+Oj) (the
+// row block of one op shard, parallel/shard.py; j0 = 0, Oj = O is the
+// whole plane, and the masks of disjoint blocks OR to the whole plane's:
+// shard.py:144-146 pack_bits16(psum(candc) != 0)). The TPU kernels
+// count the hits per diagonal through the matrix unit and then test
+// count != 0; the engine reads
 // only that test (fused2.py:707), so here each block keeps one presence
 // bit per diagonal in an O/32-word shared-memory mask, and the
 // [B, O, O] equality plane never reaches device memory.
@@ -38,8 +42,8 @@ constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 cand_kernel(const int32_t *__restrict__ fkm,
-            const int32_t *__restrict__ rkm, int ld, int O, int mode,
-            int C, void *__restrict__ out) {
+            const int32_t *__restrict__ rkm, int ld, int O, int j0,
+            int jend, int mode, int C, void *__restrict__ out) {
     __shared__ int32_t sf[MAX_O];
     __shared__ uint32_t mask[MAX_O / 32];
 
@@ -54,7 +58,8 @@ cand_kernel(const int32_t *__restrict__ fkm,
     for (int i = threadIdx.x; i < O; i += blockDim.x) {
         const int32_t r = rrow[i];
         if (r < 0) continue;  // not emitted: equals no stored k-mer
-        for (int j = 0; j < O - i; ++j) {
+        const int jhi = min(O - i, jend);
+        for (int j = j0; j < jhi; ++j) {
             if (sf[j] == r) {
                 const int t = j + i;
                 atomicOr(&mask[t >> 5], 1u << (t & 31));
@@ -91,11 +96,11 @@ cand_kernel(const int32_t *__restrict__ fkm,
 }  // namespace
 
 extern "C" int psq_cuda_cand(const void *fkm, const void *rkm, long B,
-                             int ld, int O, int mode, int C, void *out,
-                             void *stream) {
+                             int ld, int O, int j0, int Oj, int mode, int C,
+                             void *out, void *stream) {
     if (B > 0)
         cand_kernel<<<(unsigned) B, THREADS, 0, (cudaStream_t) stream>>>(
-            (const int32_t *) fkm, (const int32_t *) rkm, ld, O, mode, C,
-            out);
+            (const int32_t *) fkm, (const int32_t *) rkm, ld, O, j0,
+            j0 + Oj, mode, C, out);
     return (int) cudaGetLastError();
 }

@@ -8,7 +8,10 @@
 // plain_counts.
 //
 // For pair b and diagonal t < O, over the live triangle j + i = t with
-// j, i < O (forward frame row j, reverse frame row i; offset o = t+1):
+// j, i < O (forward frame row j, reverse frame row i; offset o = t+1),
+// restricted to the plane rows j in [j0, j0+Oj) (the row block of one
+// op shard, parallel/shard.py; j0 = 0, Oj = O is the whole plane, and
+// the counts of disjoint blocks add up to the whole plane's):
 //   m     = #{ (f & r) != 0 and not N }
 //   unk   = #{ f or r is N (0x0F), and neither is a pad (0) }
 //   candc = #{ Fkm[j] == Rkm[i] }
@@ -38,8 +41,9 @@ constexpr int THREADS = 128;
 __global__ void __launch_bounds__(THREADS)
 counts_kernel(const uint8_t *__restrict__ nt,
               const int32_t *__restrict__ fkm,
-              const int32_t *__restrict__ rkm, int ld, int O,
-              int32_t *__restrict__ m_out, int32_t *__restrict__ unk_out,
+              const int32_t *__restrict__ rkm, int ld, int O, int j0,
+              int jend, int32_t *__restrict__ m_out,
+              int32_t *__restrict__ unk_out,
               int32_t *__restrict__ cand_out) {
     __shared__ uint8_t sf[MAX_O];
     __shared__ uint8_t sr[MAX_O];
@@ -59,8 +63,9 @@ counts_kernel(const uint8_t *__restrict__ nt,
     for (int u = threadIdx.x; u < O / 2; u += blockDim.x) {
         for (int half = 0; half < 2; ++half) {
             const int t = half ? O - 1 - u : u;
+            const int jhi = min(t, jend - 1);
             int m = 0, unk = 0, cand = 0;
-            for (int j = 0; j <= t; ++j) {
+            for (int j = j0; j <= jhi; ++j) {
                 const int i = t - j;
                 const unsigned f = sf[j];
                 const unsigned r = sr[i];
@@ -81,12 +86,12 @@ counts_kernel(const uint8_t *__restrict__ nt,
 
 extern "C" int psq_cuda_counts(const void *nt, const void *fkm,
                                const void *rkm, long B, int ld, int O,
-                               void *m, void *unk, void *cand,
-                               void *stream) {
+                               int j0, int Oj, void *m, void *unk,
+                               void *cand, void *stream) {
     if (B > 0)
         counts_kernel<<<(unsigned) B, THREADS, 0, (cudaStream_t) stream>>>(
             (const uint8_t *) nt, (const int32_t *) fkm,
-            (const int32_t *) rkm, ld, O, (int32_t *) m, (int32_t *) unk,
-            (int32_t *) cand);
+            (const int32_t *) rkm, ld, O, j0, j0 + Oj, (int32_t *) m,
+            (int32_t *) unk, (int32_t *) cand);
     return (int) cudaGetLastError();
 }

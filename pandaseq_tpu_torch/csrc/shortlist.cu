@@ -3,12 +3,14 @@
 //
 // Replaces pandaseq_tpu/ops/fused2.py:shortlist_from_counts (:267-355)
 // for the count-based score kinds (simple_bayesian / uparse "counts",
-// ea_util, flash, stitch), the tail of _shortlist_core (:358) and of
-// assemble_shortlist_nt (:466). Plain twin:
+// ea_util, flash, stitch) and the LUT kind (pear, rdp_mle: the scores
+// are the f32 LUT sums of lut_sums.cu), the tail of _shortlist_core
+// (:358) and of assemble_shortlist(_nt, _packed) (:396-466). Plain twin:
 // pandaseq_tpu_torch/ops/fused2.py plain_shortlist.
 //
-// Input: the exact diagonal sums m, unk, candc [B, O] int32 (counts.cu)
-// and flen, rlen, fo, ro [B] int32. Output: [B, 2*SL + 4] int32, the
+// Input: the exact diagonal sums m, unk, candc [B, O] int32 (counts.cu),
+// for the LUT kind the sums lutsum [B, O] f32, and flen, rlen, fo, ro [B]
+// int32. Output: [B, 2*SL + 4] int32, the
 // layout of fused2.py:436-444 — the top SL offsets by f32 score packed
 // as o | m<<10 | mm<<20 (0 where the score is -inf), their scores as
 // bitcast f32 (-3e38 where -inf), the first-max offset besto32, the
@@ -41,7 +43,8 @@ constexpr int MAX_SL = 32;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 // score kinds (ops/dense.py SCORE_KINDS); 0 is "counts"
-constexpr int KIND_EA_UTIL = 1, KIND_FLASH = 2, KIND_STITCH = 3;
+constexpr int KIND_EA_UTIL = 1, KIND_FLASH = 2, KIND_STITCH = 3,
+              KIND_LUT = 4;
 
 // (score descending, index ascending)
 __device__ __forceinline__ bool ahead(float s, int i, float bs, int bi) {
@@ -115,6 +118,7 @@ __global__ void __launch_bounds__(THREADS)
 shortlist_kernel(const int32_t *__restrict__ m,
                  const int32_t *__restrict__ unk,
                  const int32_t *__restrict__ candc,
+                 const float *__restrict__ lutsum,
                  const int32_t *__restrict__ flen,
                  const int32_t *__restrict__ rlen,
                  const int32_t *__restrict__ fo,
@@ -160,8 +164,10 @@ shortlist_kernel(const int32_t *__restrict__ m,
         const int mv = mrow[x], uv = urow[x];
         const int nvalid = nvalid_of(o2, fl, rl);
         const int mmv = nvalid - mv - uv;
-        const float s = score_of(kind, o2, fl, rl, mv, uv, mmv, nvalid,
-                                 pmatch, pmismatch, nn);
+        const float s = kind == KIND_LUT
+            ? lutsum[b * O + x]
+            : score_of(kind, o2, fl, rl, mv, uv, mmv, nvalid, pmatch,
+                       pmismatch, nn);
         if (kind == KIND_STITCH) wrapped |= cand && mv - mmv < 0;
         examined += cand;
         score[x] = cand ? s : -INFINITY;
@@ -224,7 +230,8 @@ shortlist_kernel(const int32_t *__restrict__ m,
 }  // namespace
 
 extern "C" int psq_cuda_shortlist(const void *m, const void *unk,
-                                  const void *candc, const void *flen,
+                                  const void *candc, const void *lutsum,
+                                  const void *flen,
                                   const void *rlen, const void *fo,
                                   const void *ro, long B, int O, int SL,
                                   int minoverlap, int maxoverlap, int kind,
@@ -234,7 +241,8 @@ extern "C" int psq_cuda_shortlist(const void *m, const void *unk,
         shortlist_kernel<<<(unsigned) B, THREADS, 0,
                            (cudaStream_t) stream>>>(
             (const int32_t *) m, (const int32_t *) unk,
-            (const int32_t *) candc, (const int32_t *) flen,
+            (const int32_t *) candc, (const float *) lutsum,
+            (const int32_t *) flen,
             (const int32_t *) rlen, (const int32_t *) fo,
             (const int32_t *) ro, O, SL, minoverlap, maxoverlap, kind,
             pmatch, pmismatch, nn, band, (int32_t *) out);

@@ -24,7 +24,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kmer_frames.cu", "cand.cu", "counts.cu", "shortlist.cu")
+SOURCES = ("kmer_frames.cu", "cand.cu", "counts.cu", "shortlist.cu",
+           "lut_sums.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
 BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,10 +96,12 @@ def load() -> ctypes.CDLL:
             sigs = {
                 "psq_cuda_kmer_frames": [P, P, P, P, P, L, I, I, P],
                 "psq_cuda_kmer_frames_nt": [P, P, P, P, P, L, I, I, P],
-                "psq_cuda_cand": [P, P, L, I, I, I, I, P, P],
-                "psq_cuda_counts": [P, P, P, L, I, I, P, P, P, P],
-                "psq_cuda_shortlist": [P, P, P, P, P, P, P, L, I, I, I, I,
-                                       I, F, F, F, F, P, P],
+                "psq_cuda_cand": [P, P, L, I, I, I, I, I, I, P, P],
+                "psq_cuda_counts": [P, P, P, L, I, I, I, I, P, P, P, P],
+                "psq_cuda_shortlist": [P, P, P, P, P, P, P, P, L, I, I, I,
+                                       I, I, F, F, F, F, P, P],
+                "psq_cuda_lut_sums": [P, P, P, P, P, L, I, I, I, P, P, F,
+                                      I, I, P, P],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)

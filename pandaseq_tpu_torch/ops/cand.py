@@ -5,8 +5,10 @@ wrappers are in ``ops/dense.py``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take, allocates the outputs with
-``torch.empty``, launches on the current stream without synchronising,
-and raises if the launch reports a CUDA error. Each adds one to its
+``torch.empty``, launches on the current stream of the tensors' card
+with that card made the current device (``_launch``; CUDA refuses a
+launch into another device's stream) without synchronising, and raises
+if the launch reports a CUDA error. Each adds one to its
 launch count where it launches, and nowhere else, so a run can show that
 the main path went through the kernel. They take CUDA tensors only: the
 plain twins for the CPU live in ``ops/fused2.py``.
@@ -18,7 +20,8 @@ import torch
 
 from . import _build
 
-KERNELS = ("kmer_frames", "cand", "kmer_frames_nt", "counts", "shortlist")
+KERNELS = ("kmer_frames", "cand", "kmer_frames_nt", "counts", "shortlist",
+           "lut_sums")
 # launches of each kernel since the last reset_launch_counts()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -36,10 +39,6 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
-def _launched(name) -> None:
-    _LAUNCHES[name] += 1
-
-
 def _check(t, name, dtype, shape, device):
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{name} must be a tensor on {device}")
@@ -52,10 +51,29 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(lib, err, kernel):
+def _row_block(O, j0, Oj):
+    """Oj (None: the rest of the plane) after checking that the plane
+    rows [j0, j0+Oj) lie in [0, O)."""
+    if Oj is None:
+        Oj = O - j0
+    if not 0 <= j0 < j0 + Oj <= O:
+        raise ValueError(f"row block [{j0}, {j0}+{Oj}) is not inside "
+                         f"[0, {O})")
+    return Oj
+
+
+def _launch(dev, kernel, *args) -> None:
+    """Launch ``kernel`` through its entry point ``psq_cuda_<kernel>``
+    with ``args`` and the current stream of ``dev``, with ``dev`` the
+    current device; raise on a CUDA error, else count the launch."""
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = getattr(lib, "psq_cuda_" + kernel)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.psq_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
+    _LAUNCHES[kernel] += 1
 
 
 def kmer_frames(plane4, flen, rlen, L, num_kmers):
@@ -77,20 +95,17 @@ def kmer_frames(plane4, flen, rlen, L, num_kmers):
     Fkm = torch.empty((B, L), dtype=torch.int32, device=dev)
     Rkm = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.psq_cuda_kmer_frames(
-            plane4.data_ptr(), flen.data_ptr(), rlen.data_ptr(),
-            Fkm.data_ptr(), Rkm.data_ptr(), B, L, int(num_kmers), stream)
-        _raise_on(lib, err, "kmer_frames")
-        _launched("kmer_frames")
+        _launch(dev, "kmer_frames", plane4.data_ptr(), flen.data_ptr(),
+                rlen.data_ptr(), Fkm.data_ptr(), Rkm.data_ptr(), B, L,
+                int(num_kmers))
     return Fkm, Rkm
 
 
-def candidates(Fkm, Rkm, O, mode, C):
+def candidates(Fkm, Rkm, O, mode, C, j0=0, Oj=None):
     """Candidate list ([B, C+2] int16, ``mode="list"``) or bitmask
     ([B, O//32] int32, ``mode="mask"``) on the card from the k-mer
-    frames (twin: fused2.plain_candidates)."""
+    frames, over plane rows [j0, j0+Oj) (twin:
+    fused2.plain_candidates)."""
     dev = Fkm.device
     if dev.type != "cuda":
         raise ValueError(f"candidates runs on a CUDA device, not {dev}")
@@ -100,6 +115,7 @@ def candidates(Fkm, Rkm, O, mode, C):
     if O % 32 or not 0 < O <= min(ld, MAX_WIDTH):
         raise ValueError(f"O={O} must be a multiple of 32 in "
                          f"(0, min({ld}, {MAX_WIDTH})]")
+    Oj = _row_block(O, j0, Oj)
     if mode == "list" and not 0 < C <= O:
         raise ValueError(f"C={C} must be in (0, {O}]")
     _check(Fkm, "Fkm", torch.int32, (B, ld), dev)
@@ -109,11 +125,6 @@ def candidates(Fkm, Rkm, O, mode, C):
     else:
         out = torch.empty((B, O // 32), dtype=torch.int32, device=dev)
     if B:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.psq_cuda_cand(Fkm.data_ptr(), Rkm.data_ptr(), B, ld, O,
-                                _MODES[mode], int(C), out.data_ptr(),
-                                stream)
-        _raise_on(lib, err, "cand")
-        _launched("cand")
+        _launch(dev, "cand", Fkm.data_ptr(), Rkm.data_ptr(), B, ld, O,
+                int(j0), int(Oj), _MODES[mode], int(C), out.data_ptr())
     return out

@@ -1,27 +1,33 @@
 """Wrappers of the dense shortlist path's CUDA kernels: the N-aware
 k-mer frames (csrc/kmer_frames.cu, ``psq_cuda_kmer_frames_nt``), the
-per-diagonal counts (csrc/counts.cu) and the shortlist
-(csrc/shortlist.cu) — the counterpart of ``pandaseq_tpu/ops/fused2.py``
-``kmer_frames``, ``plane_counts`` and ``shortlist_from_counts``.
+per-diagonal counts (csrc/counts.cu), the per-diagonal LUT sums of pear
+and rdp_mle (csrc/lut_sums.cu) and the shortlist (csrc/shortlist.cu) —
+the counterpart of ``pandaseq_tpu/ops/fused2.py`` ``kmer_frames``,
+``plane_counts``, ``lut_plane_sums`` and ``shortlist_from_counts``.
 
 As in ``ops/cand.py``: each wrapper checks device, dtype, shape and
 contiguity and raises on what its kernel does not take, allocates the
-outputs with ``torch.empty``, launches on the current stream without
+outputs with ``torch.empty``, launches on the current stream of the
+tensors' card with that card current (``cand._launch``) without
 synchronising, raises if the launch reports a CUDA error, and adds one
 to its launch count (``cand.launch_counts()``) where it launches and
 nowhere else. They take CUDA tensors only: the plain twins for the CPU
-are ``plain_kmer_frames_nt``, ``plain_counts`` and ``plain_shortlist``
-in ``ops/fused2.py``.
+are ``plain_kmer_frames_nt``, ``plain_counts``, ``plain_lut_sums`` and
+``plain_shortlist`` in ``ops/fused2.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from .cand import MAX_WIDTH, _check, _launched, _raise_on
+from .cand import MAX_WIDTH, _check, _launch, _row_block
+from .fused2 import QUAL_BINS
 
-SCORE_KINDS = {"counts": 0, "ea_util": 1, "flash": 2, "stitch": 3}
+# score kinds of the shortlist kernel; pear and rdp_mle both score the
+# LUT sums
+SCORE_KINDS = {"counts": 0, "ea_util": 1, "flash": 2, "stitch": 3,
+               "pear": 4, "rdp_mle": 4}
+LUT_KINDS = {"pear": 0, "rdp_mle": 1}  # the lut_sums kernel's kinds
 MAX_SL = 32  # shared-memory shortlist slots of the shortlist kernel
 
 
@@ -49,46 +55,74 @@ def kmer_frames_nt(nt, flen, rlen, L, num_kmers):
     Fkm = torch.empty((B, L), dtype=torch.int32, device=dev)
     Rkm = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.psq_cuda_kmer_frames_nt(
-            nt.data_ptr(), flen.data_ptr(), rlen.data_ptr(),
-            Fkm.data_ptr(), Rkm.data_ptr(), B, L, int(num_kmers), stream)
-        _raise_on(lib, err, "kmer_frames_nt")
-        _launched("kmer_frames_nt")
+        _launch(dev, "kmer_frames_nt", nt.data_ptr(), flen.data_ptr(),
+                rlen.data_ptr(), Fkm.data_ptr(), Rkm.data_ptr(), B, L,
+                int(num_kmers))
     return Fkm, Rkm
 
 
-def counts(nt, Fkm, Rkm, O):
+def counts(nt, Fkm, Rkm, O, j0=0, Oj=None):
     """(m, unk, candc) [B, O] int32 on the card: the exact match, N and
-    k-mer hit counts of every diagonal t < O (twin:
-    fused2.plain_counts)."""
+    k-mer hit counts of every diagonal t < O over plane rows [j0, j0+Oj)
+    (twin: fused2.plain_counts)."""
     dev = _cuda(nt, "counts")
     B, ld = nt.shape
     if O % 32 or not 0 < O <= min(ld, MAX_WIDTH):
         raise ValueError(f"O={O} must be a multiple of 32 in "
                          f"(0, min({ld}, {MAX_WIDTH})]")
+    Oj = _row_block(O, j0, Oj)
     _check(nt, "nt", torch.int8, (B, ld), dev)
     _check(Fkm, "Fkm", torch.int32, (B, ld), dev)
     _check(Rkm, "Rkm", torch.int32, (B, ld), dev)
     m, unk, candc = (torch.empty((B, O), dtype=torch.int32, device=dev)
                      for _ in range(3))
     if B:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.psq_cuda_counts(nt.data_ptr(), Fkm.data_ptr(),
-                                  Rkm.data_ptr(), B, ld, O, m.data_ptr(),
-                                  unk.data_ptr(), candc.data_ptr(), stream)
-        _raise_on(lib, err, "counts")
-        _launched("counts")
+        _launch(dev, "counts", nt.data_ptr(), Fkm.data_ptr(),
+                Rkm.data_ptr(), B, ld, O, int(j0), int(Oj), m.data_ptr(),
+                unk.data_ptr(), candc.data_ptr())
     return m, unk, candc
 
 
+def lut_sums(nt, fr_q, rr_q, flen, rlen, O, algo_kind, lut_match,
+             lut_mismatch, nn_term, j0=0, Oj=None):
+    """[B, O] float32 on the card: the per-diagonal sums of per-base LUT
+    scores of pear / rdp_mle over plane rows [j0, j0+Oj), from the
+    nibble plane nt and the qual planes fr_q / rr_q [B, ld] int8 and the
+    tables lut_match / lut_mismatch [47, 47] float32 on the card (twin:
+    fused2.plain_lut_sums)."""
+    dev = _cuda(nt, "lut_sums")
+    if algo_kind not in LUT_KINDS:
+        raise ValueError(f"score kind {algo_kind!r} is not one of "
+                         f"{sorted(LUT_KINDS)}")
+    B, ld = nt.shape
+    if O % 32 or not 0 < O <= min(ld, MAX_WIDTH):
+        raise ValueError(f"O={O} must be a multiple of 32 in "
+                         f"(0, min({ld}, {MAX_WIDTH})]")
+    Oj = _row_block(O, j0, Oj)
+    for t, name in ((nt, "nt"), (fr_q, "fr_q"), (rr_q, "rr_q")):
+        _check(t, name, torch.int8, (B, ld), dev)
+    _check(flen, "flen", torch.int32, (B,), dev)
+    _check(rlen, "rlen", torch.int32, (B,), dev)
+    for t, name in ((lut_match, "lut_match"),
+                    (lut_mismatch, "lut_mismatch")):
+        _check(t, name, torch.float32, (QUAL_BINS, QUAL_BINS), dev)
+    out = torch.empty((B, O), dtype=torch.float32, device=dev)
+    if B:
+        _launch(dev, "lut_sums", nt.data_ptr(), fr_q.data_ptr(),
+                rr_q.data_ptr(), flen.data_ptr(), rlen.data_ptr(), B, ld, O,
+                LUT_KINDS[algo_kind], lut_match.data_ptr(),
+                lut_mismatch.data_ptr(), float(nn_term), int(j0), int(Oj),
+                out.data_ptr())
+    return out
+
+
 def shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL, minoverlap,
-              maxoverlap, algo_kind, pmatch, pmismatch, nn, band):
+              maxoverlap, algo_kind, pmatch, pmismatch, nn, band,
+              lutsum=None):
     """[B, 2*SL + 4] int32 on the card: f32 scores, range rules and the
-    winner / top-SL shortlist from the count sums (twin:
-    fused2.plain_shortlist)."""
+    winner / top-SL shortlist from the count sums, scored from the counts
+    or, for the LUT kinds, from the f32 LUT sums ``lutsum`` [B, O]
+    (twin: fused2.plain_shortlist)."""
     dev = _cuda(m, "shortlist")
     if algo_kind not in SCORE_KINDS:
         raise ValueError(f"score kind {algo_kind!r} is not one of "
@@ -103,16 +137,17 @@ def shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL, minoverlap,
     for t, name in ((flen, "flen"), (rlen, "rlen"), (fo, "fo"),
                     (ro, "ro")):
         _check(t, name, torch.int32, (B,), dev)
+    if algo_kind in LUT_KINDS:
+        _check(lutsum, "lutsum", torch.float32, (B, O), dev)
+    elif lutsum is not None:
+        raise ValueError("lutsum goes with the LUT kinds, and only them")
     out = torch.empty((B, 2 * SL + 4), dtype=torch.int32, device=dev)
     if B:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.psq_cuda_shortlist(
-            m.data_ptr(), unk.data_ptr(), candc.data_ptr(),
-            flen.data_ptr(), rlen.data_ptr(), fo.data_ptr(), ro.data_ptr(),
-            B, O, SL, int(minoverlap), int(maxoverlap),
-            SCORE_KINDS[algo_kind], float(pmatch), float(pmismatch),
-            float(nn), float(band), out.data_ptr(), stream)
-        _raise_on(lib, err, "shortlist")
-        _launched("shortlist")
+        _launch(dev, "shortlist", m.data_ptr(), unk.data_ptr(),
+                candc.data_ptr(),
+                lutsum.data_ptr() if lutsum is not None else None,
+                flen.data_ptr(), rlen.data_ptr(), fo.data_ptr(),
+                ro.data_ptr(), B, O, SL, int(minoverlap), int(maxoverlap),
+                SCORE_KINDS[algo_kind], float(pmatch), float(pmismatch),
+                float(nn), float(band), out.data_ptr())
     return out

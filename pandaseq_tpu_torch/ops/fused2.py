@@ -9,29 +9,33 @@ here:
   search (assembler.c:84-118); the native host finalizer
   (native/psq_io.cpp:psq_finalize) does the exact f64 selection,
   reconstruction and emission;
-* the dense shortlist (``-k 0`` and custom algorithms): exact integer
-  match / N / k-mer counts on every diagonal of the overlap plane, f32
-  scores, and the winner plus the top-SL offsets, from which the host
-  re-derives the exact f64 winner.
+* the dense shortlist (``-k 0`` and custom algorithms, and the library
+  entry points for pear / rdp_mle): exact integer match / N / k-mer
+  counts on every diagonal of the overlap plane (plus f32 per-base LUT
+  sums for pear / rdp_mle), f32 scores, and the winner plus the top-SL
+  offsets, from which the host re-derives the exact f64 winner.
 
 Two kinds of function live here:
 
 * plain twins, written in device-agnostic PyTorch with the JAX
   functions' names and arguments (``kmer_frames``, ``kmer_frames_codes``,
-  ``plane_cand``, ``plane_counts``, ``shortlist_from_counts``,
-  ``pack_bits16``, ``_unpack2bit``, ...). They compute the same values
-  as the JAX code, by the same method (the kmerseen rank is sort-based),
-  and never build a ``[B, L, L]`` plane. ``plain_kmer_frames``,
-  ``plain_candidates``, ``plain_kmer_frames_nt``, ``plain_counts`` and
-  ``plain_shortlist`` mirror the CUDA kernels of ``ops/cand.py`` and
-  ``ops/dense.py`` argument for argument, so the kernels can be held
-  against them on the card;
+  ``plane_cand``, ``plane_counts``, ``lut_plane_sums``,
+  ``shortlist_from_counts``, ``pack_bits16``, ``_unpack2bit``, ...).
+  They compute the same values as the JAX code (the LUT sums up to f32
+  summation order), by the same method where it is exact (the kmerseen
+  rank is sort-based), and never build a ``[B, L, L]`` plane. The
+  ``plain_*`` functions mirror the CUDA kernels of ``ops/cand.py`` and
+  ``ops/dense.py`` argument for argument (``PLAIN_OPS`` against
+  ``device_ops(cuda)``), so the kernels can be held against them on the
+  card, and the row-block forms (``j0``, ``Oj``) serve the op-sharded
+  steps of ``parallel/shard.py``;
 * the public entry points ``assemble_candidates_list_packed4``,
-  ``assemble_candidates_packed4``, ``assemble_candidates_nt`` and
-  ``assemble_shortlist_nt``, which pick the implementation only by the
-  device their tensors lie on: a CPU tensor runs the plain twins, a CUDA
-  tensor launches the kernels (or the kernel wrapper raises). There is
-  no fallback from one to the other.
+  ``assemble_candidates_packed4``, ``assemble_candidates_nt``,
+  ``assemble_shortlist_nt``, ``assemble_shortlist`` and
+  ``assemble_shortlist_packed``, which pick the implementation only by
+  the device their tensors lie on (``device_ops``): a CPU tensor runs
+  the plain twins, a CUDA tensor launches the kernels (or the kernel
+  wrapper raises). There is no fallback from one to the other.
 
 ``build_ptable`` is the port's copy of the JAX package's host table (plain
 numpy): the f64 probability table and the PHRED byte table built from it
@@ -40,6 +44,8 @@ to the reference's bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -61,16 +67,16 @@ CAND_LIST_C = 4
 # the frame width the rank key and the kernels' shared-memory rows allow
 MAX_FRAME = 1024
 
-# f32-vs-f64 shortlist band of the count-based scores, and the
-# shortlist width (pandaseq_tpu/ops/fused2.py)
+# f32-vs-f64 shortlist bands of the count-based and the LUT-sum scores,
+# and the shortlist width (pandaseq_tpu/ops/fused2.py)
 BAND_COUNTS = 0.01
+BAND_LUT = 0.05
 SHORTLIST = 8
-# score families of the dense device shortlist; pear / rdp_mle score
-# per-base LUT sums (lut_plane_sums, K7), which are not ported
+# score families of the dense device shortlist: integer counts, and the
+# per-base LUT sums of pear / rdp_mle (lut_plane_sums, K7)
 COUNT_KINDS = ("counts", "ea_util", "flash", "stitch")
-LUT_MSG = ("the LUT-scored dense shortlist (pear / rdp_mle without the "
-           "native library: lut_plane_sums, K7) is not ported to PyTorch "
-           "yet (ROADMAP Q1 item 6, with the mesh slice)")
+LUT_KINDS = ("pear", "rdp_mle")
+QUAL_BINS = 47  # the LUTs are 47 x 47, quals clipped to [0, 46]
 
 
 def _shift(x, t: int):
@@ -221,6 +227,75 @@ def plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0=0, Oj=None):
     return m, unk, candc
 
 
+def lut_table(t, dev):
+    """A 47x47 LUT as the f32 tensor on ``dev`` that the sums read: the
+    f64 table rounded to f32 (an f32 tensor passes unchanged)."""
+    t = torch.as_tensor(t)
+    if t.dtype != torch.float32:
+        t = t.to(torch.float64).to(torch.float32)
+    if tuple(t.shape) != (QUAL_BINS, QUAL_BINS):
+        raise ValueError(f"a LUT must be {QUAL_BINS}x{QUAL_BINS}, got "
+                         f"{tuple(t.shape)}")
+    return t.to(dev).contiguous()
+
+
+def lut_plane_sums(fr_q, rr_q, nt_f, nt_r, flen, rlen, L, O, algo_kind,
+                   lut_match, lut_mismatch, nn_term, j0=0, Oj=None):
+    """f32 per-diagonal sums of per-base LUT scores (pear / rdp_mle) over
+    plane rows j' in [j0, j0+Oj): [B, O] float32, diagonal t = j' + i.
+
+    The term of cell (j', i) is ``Tm[qf, q2]`` where the forward and
+    reverse codes bit-intersect (``f & r != 0``), else ``Tmm[qf, q2]``,
+    with the quals clipped to [0, 46] and the tables rounded to f32; pads
+    (nt 0) on either side contribute 0. pear puts ``nn_term`` on N cells
+    (either side 0x0F, neither a pad); rdp_mle has no N case, so an N
+    (which intersects every code) scores as a match. ``qf`` is the
+    forward qual at j'; ``q2`` is the reverse qual at i, except for
+    pear, which reads BOTH from the forward buffer (algo_pear.c:52-54):
+    at ``flen-1-x`` for ``x = rlen-1-i < flen``, else at ``x`` — the
+    stale persistent-buffer tail past ``flen``, which must be passed as
+    read — clipped to [0, L-1].
+
+    Each diagonal adds its terms one f32 add at a time in ascending j'
+    (gathers, no matmul), the order of the lut_sums kernel. The JAX
+    twin sums through a HIGHEST-precision dot_general instead, so the
+    two differ by summation order only."""
+    if Oj is None:
+        Oj = O
+    if algo_kind not in LUT_KINDS:
+        raise ValueError(f"score kind {algo_kind!r} is not a LUT kind")
+    dev = nt_f.device
+    B = nt_f.shape[0]
+    flen = flen.to(torch.int64)[:, None]
+    rlen = rlen.to(torch.int64)[:, None]
+    qf = fr_q.to(torch.int64).clamp(0, QUAL_BINS - 1)
+    if algo_kind == "pear":
+        x = rlen - 1 - torch.arange(O, dtype=torch.int64, device=dev)[None]
+        idx = torch.where(x < flen, flen - 1 - x, x).clamp(0, L - 1)
+        q2 = fr_q.to(torch.int64).gather(1, idx)
+    else:
+        q2 = rr_q[:, :O].to(torch.int64)
+    q2 = q2.clamp(0, QUAL_BINS - 1)
+    tm = lut_table(lut_match, dev).reshape(-1)
+    tmm = lut_table(lut_mismatch, dev).reshape(-1)
+    nn = _f32(nn_term, dev)
+    zero = _f32(0.0, dev)
+    r = nt_r[:, :O].to(torch.int32)
+    r_pad = r == 0
+    r_n = r == 0x0F
+    acc = torch.zeros((B, O), dtype=torch.float32, device=dev)
+    for j in range(j0, min(j0 + Oj, O)):
+        w = O - j
+        f = nt_f[:, j:j + 1].to(torch.int32)
+        cell = qf[:, j:j + 1] * QUAL_BINS + q2[:, :w]
+        term = torch.where((f & r[:, :w]) != 0, tm[cell], tmm[cell])
+        if algo_kind == "pear":
+            term = torch.where((f == 0x0F) | r_n[:, :w], nn, term)
+        term = torch.where((f == 0) | r_pad[:, :w], zero, term)
+        acc[:, j:] += term
+    return acc
+
+
 def _f32(x, dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
@@ -258,7 +333,7 @@ def shortlist_from_counts(m, unk, candc, lutsum, flen, rlen, fo, ro, *,
     examined = cand_in.sum(dim=1, dtype=torch.int32)
 
     wrapped = None
-    if algo_kind in ("pear", "rdp_mle"):
+    if algo_kind in LUT_KINDS:
         scores = lutsum
     elif algo_kind == "ea_util":
         bad = (mm + unk).to(f32)  # algo_ea_util.c:49-55
@@ -387,11 +462,12 @@ def plain_kmer_frames(plane4, flen, rlen, L, num_kmers):
     return kmer_frames_codes(cf, nonn, cr, nonn, flen, rlen, L, num_kmers)
 
 
-def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C):
+def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C, j0=0, Oj=None):
     """Plain twin of the ``cand`` kernel: the candidate list ([B, C+2]
     int16) in ``"list"`` mode, the candidate bitmask ([B, O//32] int32)
-    in ``"mask"`` mode."""
-    candc = plane_cand(Fkm, Rkm, O)
+    in ``"mask"`` mode, over plane rows [j0, j0+Oj). The masks of
+    disjoint row blocks OR to the full plane's mask."""
+    candc = plane_cand(Fkm, Rkm, O, j0, Oj)
     if mode == "list":
         return _cand_list(candc, O, C)
     if mode == "mask":
@@ -399,10 +475,91 @@ def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C):
     raise ValueError(f"unknown candidate mode {mode!r}")
 
 
-def _step_inputs(plane, lens, L, O):
-    """(plane, [B] int32 lengths / offsets, O) on one device, checked;
-    the device type picks the implementation: "cuda" launches the
-    kernels, "cpu" runs the plain twins."""
+def _nibbles(nt):
+    """(nt_f, nt_r) int32: the forward read's low nibble and the reverse
+    read's high nibble of the nibble-packed plane (bytes unsigned)."""
+    nts = nt.to(torch.int32) & 0xFF
+    return nts & 0x0F, nts >> 4
+
+
+def plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers):
+    """Plain twin of the ``kmer_frames_nt`` kernel: (Fkm, Rkm) [B, L]
+    int32 from the nibble-packed plane ``nt`` [B, L] int8, with the
+    true N positions."""
+    nt_f, nt_r = _nibbles(nt)
+    return kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers)
+
+
+def plain_counts(nt, Fkm, Rkm, O, j0=0, Oj=None):
+    """Plain twin of the ``counts`` kernel: (m, unk, candc) [B, O]
+    int32 from the nibble-packed plane and the k-mer frames, over plane
+    rows [j0, j0+Oj); the counts of disjoint row blocks add up to the
+    full plane's."""
+    nt_f, nt_r = _nibbles(nt)
+    return plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0, Oj)
+
+
+def plain_lut_sums(nt, fr_q, rr_q, flen, rlen, O, algo_kind, lut_match,
+                   lut_mismatch, nn_term, j0=0, Oj=None):
+    """Plain twin of the ``lut_sums`` kernel: [B, O] f32 LUT sums over
+    plane rows [j0, j0+Oj) from the nibble-packed plane and the [B, L]
+    int8 qual planes (L is their width)."""
+    nt_f, nt_r = _nibbles(nt)
+    return lut_plane_sums(fr_q, rr_q, nt_f, nt_r, flen, rlen,
+                          fr_q.shape[1], O, algo_kind, lut_match,
+                          lut_mismatch, nn_term, j0, Oj)
+
+
+def plain_shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL,
+                    minoverlap, maxoverlap, algo_kind, pmatch, pmismatch,
+                    nn, band, lutsum=None):
+    """Plain twin of the ``shortlist`` kernel: [B, 2*SL + 4] int32 from
+    the count sums, scored from the counts or, for the LUT kinds, from
+    the f32 LUT sums ``lutsum`` [B, O]."""
+    if algo_kind not in COUNT_KINDS + LUT_KINDS:
+        raise ValueError(f"unknown score kind {algo_kind!r}")
+    if (lutsum is None) == (algo_kind in LUT_KINDS):
+        raise ValueError("lutsum goes with the LUT kinds, and only them")
+    return shortlist_from_counts(
+        m, unk, candc, lutsum, flen, rlen, fo, ro, O=O, SL=SL,
+        minoverlap=minoverlap, maxoverlap=maxoverlap, algo_kind=algo_kind,
+        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band)
+
+
+class DeviceOps(NamedTuple):
+    """One implementation of each device op, with the kernel wrappers'
+    names and arguments."""
+    kmer_frames: Callable
+    candidates: Callable
+    kmer_frames_nt: Callable
+    counts: Callable
+    lut_sums: Callable
+    shortlist: Callable
+
+
+PLAIN_OPS = DeviceOps(plain_kmer_frames, plain_candidates,
+                      plain_kmer_frames_nt, plain_counts, plain_lut_sums,
+                      plain_shortlist)
+
+
+def device_ops(dev) -> DeviceOps:
+    """The ops for tensors on ``dev``: the CUDA kernels' wrappers
+    (ops/cand.py, ops/dense.py) on a CUDA device, the plain twins on the
+    CPU. The device alone decides; nothing falls back."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        from . import cand, dense
+        return DeviceOps(cand.kmer_frames, cand.candidates,
+                         dense.kmer_frames_nt, dense.counts, dense.lut_sums,
+                         dense.shortlist)
+    if dev.type == "cpu":
+        return PLAIN_OPS
+    raise ValueError(f"no device step for device {dev}")
+
+
+def _step_inputs(plane, lens, L, O, quals=()):
+    """(plane, quals, [B] int32 lengths / offsets, O) on one device,
+    checked; the device type picks the implementation (device_ops)."""
     if O is None:
         O = L
     if O > MAX_FRAME:
@@ -410,25 +567,25 @@ def _step_inputs(plane, lens, L, O):
                          "int16, and overflow O routes to the host")
     plane = torch.as_tensor(plane)
     dev = plane.device
+    quals = [torch.as_tensor(q) for q in quals]
     lens = [torch.as_tensor(x) for x in lens]
-    if any(x.device != dev for x in lens):
-        raise ValueError("the plane and the [B] arrays must be on one "
+    if any(x.device != dev for x in quals + lens):
+        raise ValueError("the planes and the [B] arrays must be on one "
                          "device")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no device step for device {dev}")
-    if dev.type == "cuda":
+    if any(q.shape != plane.shape for q in quals):
+        raise ValueError("the qual planes must have the nt plane's shape")
+    if dev.type == "cuda":  # the kernels take contiguous rows
+        plane = plane.contiguous()
+        quals = [q.contiguous() for q in quals]
         lens = [x.to(torch.int32).contiguous() for x in lens]
-    return plane, lens, O
+    return plane, quals, lens, O
 
 
 def _candidates_packed4(plane4, flen, rlen, L, O, num_kmers, mode, C):
-    plane4, (flen, rlen), O = _step_inputs(plane4, (flen, rlen), L, O)
-    if plane4.device.type == "cuda":
-        from . import cand
-        Fkm, Rkm = cand.kmer_frames(plane4, flen, rlen, L, num_kmers)
-        return cand.candidates(Fkm, Rkm, O, mode, C)
-    Fkm, Rkm = plain_kmer_frames(plane4, flen, rlen, L, num_kmers)
-    return plain_candidates(Fkm, Rkm, O, mode, C)
+    plane4, _, (flen, rlen), O = _step_inputs(plane4, (flen, rlen), L, O)
+    ops = device_ops(plane4.device)
+    Fkm, Rkm = ops.kmer_frames(plane4, flen, rlen, L, num_kmers)
+    return ops.candidates(Fkm, Rkm, O, mode, C)
 
 
 def assemble_candidates_list_packed4(plane4, flen, rlen, *, L: int,
@@ -451,70 +608,48 @@ def assemble_candidates_packed4(plane4, flen, rlen, *, L: int,
                                "mask", CAND_LIST_C)
 
 
-def _nibbles(nt):
-    """(nt_f, nt_r) int32: the forward read's low nibble and the reverse
-    read's high nibble of the nibble-packed plane (bytes unsigned)."""
-    nts = nt.to(torch.int32) & 0xFF
-    return nts & 0x0F, nts >> 4
-
-
-def plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers):
-    """Plain twin of the ``kmer_frames_nt`` kernel: (Fkm, Rkm) [B, L]
-    int32 from the nibble-packed plane ``nt`` [B, L] int8, with the
-    true N positions."""
-    nt_f, nt_r = _nibbles(nt)
-    return kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers)
-
-
-def plain_counts(nt, Fkm, Rkm, O):
-    """Plain twin of the ``counts`` kernel: (m, unk, candc) [B, O]
-    int32 from the nibble-packed plane and the k-mer frames."""
-    nt_f, nt_r = _nibbles(nt)
-    return plane_counts(nt_f, nt_r, Fkm, Rkm, O)
-
-
-def plain_shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL,
-                    minoverlap, maxoverlap, algo_kind, pmatch, pmismatch,
-                    nn, band):
-    """Plain twin of the ``shortlist`` kernel: [B, 2*SL + 4] int32 from
-    the count sums, for the count-based score kinds."""
-    if algo_kind not in COUNT_KINDS:
-        raise ValueError(f"score kind {algo_kind!r} is not count-based")
-    return shortlist_from_counts(
-        m, unk, candc, None, flen, rlen, fo, ro, O=O, SL=SL,
-        minoverlap=minoverlap, maxoverlap=maxoverlap, algo_kind=algo_kind,
-        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band)
-
-
 def _shortlist_core(nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
                     SL, minoverlap, maxoverlap, num_kmers, algo_kind,
                     pmatch, pmismatch, nn, nn_term, band, lut_match,
                     lut_mismatch):
-    """The dense shortlist on plain twins (see assemble_shortlist_nt).
-    The quality planes and LUTs serve only the LUT kinds (K7)."""
-    if algo_kind not in COUNT_KINDS:
-        raise NotImplementedError(LUT_MSG)
+    """The dense shortlist on the ops of the plane's device (see
+    assemble_shortlist): frames, counts, the LUT sums for the LUT kinds,
+    then the shortlist. The qual planes and LUTs serve only the LUT
+    kinds."""
     if O is None:
         O = L
+    lut = algo_kind in LUT_KINDS
     if band is None:
-        band = BAND_COUNTS
-    Fkm, Rkm = plain_kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-    m, unk, candc = plain_counts(nt_pack, Fkm, Rkm, O)
-    return plain_shortlist(
+        band = BAND_LUT if lut else BAND_COUNTS
+    ops = device_ops(nt_pack.device)
+    Fkm, Rkm = ops.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+    m, unk, candc = ops.counts(nt_pack, Fkm, Rkm, O)
+    lutsum = None
+    if lut:
+        if lut_match is None or lut_mismatch is None:
+            raise ValueError(f"{algo_kind} scores LUT sums: pass "
+                             "lut_match and lut_mismatch")
+        dev = nt_pack.device
+        lutsum = ops.lut_sums(nt_pack, fr_q, rr_q, flen, rlen, O,
+                              algo_kind, lut_table(lut_match, dev),
+                              lut_table(lut_mismatch, dev), nn_term)
+    return ops.shortlist(
         m, unk, candc, flen, rlen, fo, ro, O=O, SL=SL,
         minoverlap=minoverlap, maxoverlap=maxoverlap, algo_kind=algo_kind,
-        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band)
+        pmatch=pmatch, pmismatch=pmismatch, nn=nn, band=band,
+        lutsum=lutsum)
 
 
-def assemble_shortlist_nt(nt_pack, flen, rlen, fo, ro, *, L: int,
-                          O: int | None = None, SL: int = SHORTLIST,
-                          minoverlap: int = 2, maxoverlap: int = 0,
-                          num_kmers: int = 2, algo_kind: str = "counts",
-                          pmatch: float = 0.0, pmismatch: float = 0.0,
-                          nn: float = float(tables.QUAL_NN_SIMPLE_BAYESIAN),
-                          band: float | None = None):
-    """The dense device step (``-k 0`` and custom algorithms) over
-    REVERSED frames -> [B, 2*SL + 4] int32:
+def assemble_shortlist(nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *,
+                       L: int, O: int | None = None, SL: int = SHORTLIST,
+                       minoverlap: int = 2, maxoverlap: int = 0,
+                       num_kmers: int = 2, algo_kind: str = "counts",
+                       pmatch: float = 0.0, pmismatch: float = 0.0,
+                       nn: float = float(tables.QUAL_NN_SIMPLE_BAYESIAN),
+                       nn_term: float = 0.0, band: float | None = None,
+                       lut_match=None, lut_mismatch=None):
+    """The dense device step over REVERSED frames -> [B, 2*SL + 4]
+    int32:
 
       [:SL]        packed shortlist: o | m<<10 | mm<<20 (0 = empty),
                    descending f32 score, ties toward smaller o
@@ -525,38 +660,75 @@ def assemble_shortlist_nt(nt_pack, flen, rlen, fo, ro, *, L: int,
       [2*SL+3]     bitcast f32 best score (-3e38 if not finite)
 
     ``nt_pack`` [B, L] int8 carries both reads' 4-bit codes (fwd |
-    rev << 4); flen / rlen / fo / ro are [B]. Count-based score kinds
-    only (counts, ea_util, flash, stitch)."""
+    rev << 4); ``fr_q`` / ``rr_q`` [B, L] int8 are the reversed-frame
+    quals, which only the LUT kinds (pear, rdp_mle: ``lut_plane_sums``
+    with ``lut_match`` / ``lut_mismatch`` and ``nn_term``) read; flen /
+    rlen / fo / ro are [B]. ``band`` defaults to BAND_LUT for the LUT
+    kinds and BAND_COUNTS otherwise. CPU tensors run the plain twins,
+    CUDA tensors the kernels."""
+    nt_pack, (fr_q, rr_q), (flen, rlen, fo, ro), O = _step_inputs(
+        nt_pack, (flen, rlen, fo, ro), L, O, (fr_q, rr_q))
+    return _shortlist_core(
+        nt_pack, fr_q, rr_q, flen, rlen, fo, ro, L=L, O=O, SL=SL,
+        minoverlap=minoverlap, maxoverlap=maxoverlap, num_kmers=num_kmers,
+        algo_kind=algo_kind, pmatch=pmatch, pmismatch=pmismatch, nn=nn,
+        nn_term=nn_term, band=band, lut_match=lut_match,
+        lut_mismatch=lut_mismatch)
+
+
+def assemble_shortlist_packed(plane, flen, rlen, fo, ro, *, L: int,
+                              O: int | None = None, SL: int = SHORTLIST,
+                              minoverlap: int = 2, maxoverlap: int = 0,
+                              num_kmers: int = 2, algo_kind: str = "counts",
+                              pmatch: float = 0.0, pmismatch: float = 0.0,
+                              nn: float = float(
+                                  tables.QUAL_NN_SIMPLE_BAYESIAN),
+                              nn_term: float = 0.0,
+                              band: float | None = None,
+                              lut_match=None, lut_mismatch=None):
+    """Single-upload form of assemble_shortlist: ``plane`` is [B, 3*L]
+    int8 columns [nt_pack | fr_q | rr_q]."""
+    plane = torch.as_tensor(plane)
+    if plane.shape[1] != 3 * L:
+        raise ValueError(f"the plane must be [B, {3 * L}], got "
+                         f"{tuple(plane.shape)}")
+    return assemble_shortlist(
+        plane[:, :L], plane[:, L:2 * L], plane[:, 2 * L:], flen, rlen, fo,
+        ro, L=L, O=O, SL=SL, minoverlap=minoverlap, maxoverlap=maxoverlap,
+        num_kmers=num_kmers, algo_kind=algo_kind, pmatch=pmatch,
+        pmismatch=pmismatch, nn=nn, nn_term=nn_term, band=band,
+        lut_match=lut_match, lut_mismatch=lut_mismatch)
+
+
+def assemble_shortlist_nt(nt_pack, flen, rlen, fo, ro, *, L: int,
+                          O: int | None = None, SL: int = SHORTLIST,
+                          minoverlap: int = 2, maxoverlap: int = 0,
+                          num_kmers: int = 2, algo_kind: str = "counts",
+                          pmatch: float = 0.0, pmismatch: float = 0.0,
+                          nn: float = float(tables.QUAL_NN_SIMPLE_BAYESIAN),
+                          band: float | None = None):
+    """Quals-free form of assemble_shortlist for the count-based score
+    kinds (counts, ea_util, flash, stitch): the upload is the nibble
+    plane alone."""
     if algo_kind not in COUNT_KINDS:
         raise ValueError(f"score kind {algo_kind!r} is not count-based")
-    if band is None:
-        band = BAND_COUNTS
-    nt_pack, (flen, rlen, fo, ro), O = _step_inputs(
+    nt_pack, _, (flen, rlen, fo, ro), O = _step_inputs(
         nt_pack, (flen, rlen, fo, ro), L, O)
-    kw = dict(O=O, SL=SL, minoverlap=minoverlap, maxoverlap=maxoverlap,
-              algo_kind=algo_kind, pmatch=pmatch, pmismatch=pmismatch,
-              nn=nn, band=band)
-    if nt_pack.device.type == "cuda":
-        from . import dense
-        Fkm, Rkm = dense.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-        m, unk, candc = dense.counts(nt_pack, Fkm, Rkm, O)
-        return dense.shortlist(m, unk, candc, flen, rlen, fo, ro, **kw)
-    return _shortlist_core(nt_pack, None, None, flen, rlen, fo, ro, L=L,
-                           num_kmers=num_kmers, nn_term=0.0,
-                           lut_match=None, lut_mismatch=None, **kw)
+    return _shortlist_core(
+        nt_pack, None, None, flen, rlen, fo, ro, L=L, O=O, SL=SL,
+        minoverlap=minoverlap, maxoverlap=maxoverlap, num_kmers=num_kmers,
+        algo_kind=algo_kind, pmatch=pmatch, pmismatch=pmismatch, nn=nn,
+        nn_term=0.0, band=band, lut_match=None, lut_mismatch=None)
 
 
 def assemble_candidates_nt(nt_pack, flen, rlen, *, L: int,
                            O: int | None = None, num_kmers: int = 2):
     """k-mer candidate search on the nibble-packed plane with the true
     N positions: [B, O//32] int32 candidate bitmask words."""
-    nt_pack, (flen, rlen), O = _step_inputs(nt_pack, (flen, rlen), L, O)
-    if nt_pack.device.type == "cuda":
-        from . import cand, dense
-        Fkm, Rkm = dense.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-        return cand.candidates(Fkm, Rkm, O, "mask", CAND_LIST_C)
-    Fkm, Rkm = plain_kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-    return plain_candidates(Fkm, Rkm, O, "mask")
+    nt_pack, _, (flen, rlen), O = _step_inputs(nt_pack, (flen, rlen), L, O)
+    ops = device_ops(nt_pack.device)
+    Fkm, Rkm = ops.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
+    return ops.candidates(Fkm, Rkm, O, "mask", CAND_LIST_C)
 
 
 def build_ptable(algo) -> np.ndarray:

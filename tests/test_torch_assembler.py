@@ -2,8 +2,8 @@
 the CPU against the JAX package's engine: the same emitted bytes and STAT
 counters for all seven built-in algorithms on the sparse path, for the
 five count-based ones at -k 0 and for a custom algorithm on the dense
-path, through the same host pipeline; and the seams that are not ported
-raise."""
+path, through the same host pipeline (and on a mesh: one case here, the
+rest in tests/test_torch_parallel.py)."""
 
 import os
 import subprocess
@@ -18,6 +18,7 @@ from pandaseq_tpu.assembler import BatchAssembler as JaxAssembler
 from pandaseq_tpu.io import native
 from pandaseq_tpu_torch.assembler import BatchAssembler, _PendingList
 from pandaseq_tpu_torch.ops import cand
+from pandaseq_tpu_torch.parallel import shard
 
 torch.set_num_threads(1)
 
@@ -92,7 +93,8 @@ def test_host_engine_pin_and_k0(monkeypatch):
     """-k 0 on the device is the dense shortlist path: it runs through
     the three dense twins and equals the JAX package's device engine.
     Pinned to the host engine it runs the native twin, equal to the JAX
-    package's host engine. Meshes still raise."""
+    package's host engine. A (dp, op) mesh of CPU devices runs the
+    sharded twins to the same bytes."""
     cfg = oracle.OracleConfig()
     cfg.num_kmers = 0
     asm = BatchAssembler(cfg, device="cpu")
@@ -106,8 +108,11 @@ def test_host_engine_pin_and_k0(monkeypatch):
     asm = BatchAssembler(cfg, device="cpu")
     assert asm.engine == "host"
     assert _emit(asm) == _emit(JaxAssembler(cfg))
-    with pytest.raises(NotImplementedError, match="Q1 item 6"):
-        BatchAssembler(device="cpu", mesh=object())
+    monkeypatch.delenv("PANDASEQ_TPU_ENGINE")
+    mesh = shard.make_mesh(devices=["cpu"] * 8, op=2)
+    asm = BatchAssembler(cfg, device="cpu", mesh=mesh)
+    assert asm.mesh is mesh and asm.engine == "cpu"
+    assert _emit(asm) == _emit(JaxAssembler(cfg))
 
 
 @pytest.mark.parametrize("name", ["simple_bayesian", "uparse", "ea_util",

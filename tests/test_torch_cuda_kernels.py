@@ -1,7 +1,11 @@
 """The port's CUDA kernels on the card: equal to their plain PyTorch
-twins and to native.cand_mask (the exact host twin), and the engine on
-the card equal to the engine on the CPU, on the sparse path and the
-dense -k 0 path. Every test is marked ``cuda``
+twins and to native.cand_mask (the exact host twin), over the full plane
+and over the row blocks of the op-sharded steps (the LUT sums of pear /
+rdp_mle bit for bit too), and the engine on the card equal to the engine
+on the CPU, on the sparse path and the dense -k 0 path, on one device
+and on a (dp=2, op=2) mesh of one card; on a machine with several cards,
+also on a named card other than the current device and on meshes across
+the cards. Every test is marked ``cuda``
 and skips where ``torch.cuda.is_available()`` is False; on a machine
 with the card (which has no JAX, hence no conftest) run
 
@@ -196,3 +200,164 @@ def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
             dict.fromkeys(cand.KERNELS, 0), kmer_frames_nt=launches,
             counts=launches, shortlist=launches)
     assert out["cpu"] and out["cuda"] == out["cpu"]
+
+
+def _lut_inputs(dev, rng, B, L):
+    """Nibble planes with N runs and pads, quals from -3 to 49 with stale
+    tails, and pear's and rdp_mle's tables on the card."""
+    import math
+
+    from pandaseq_tpu import tables
+    nt, flen, rlen = _nt_planes(rng, B, L)
+    fq = rng.integers(-3, 50, (B, L)).astype(np.int8)
+    rq = rng.integers(-3, 50, (B, L)).astype(np.int8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nn = float(tables.QUAL_NN_SIMPLE_BAYESIAN)
+    luts = {"pear": (tables.QUAL_MATCH_PEAR, tables.QUAL_MISMATCH_PEAR,
+                     -math.log(0.25)),
+            "rdp_mle": (tables.QUAL_MATCH_SIMPLE_BAYESIAN - nn,
+                        tables.QUAL_MISMATCH_RDP_MLE - nn, 0.0)}
+    luts = {k: (fused2.lut_table(a, dev), fused2.lut_table(b, dev), c)
+            for k, (a, b, c) in luts.items()}
+    return tuple(map(t, (nt, fq, rq, flen, rlen))), luts
+
+
+@pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (512, 512)])
+def test_lut_sums_equal_twin(dev, Lb, O):
+    """lut_sums against its twin bit for bit, over the full plane and the
+    row blocks of op 2 and 4, for pear and rdp_mle; then the LUT kind of
+    the shortlist kernel against its twin, and the [B, 3L] single-upload
+    entry point against assemble_shortlist (its nt columns are a strided
+    view of the plane)."""
+    rng = np.random.default_rng(Lb + O)
+    B = 256
+    (nt, fq, rq, flen, rlen), luts = _lut_inputs(dev, rng, B, Lb)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    for kind, (tm, tmm, nn) in luts.items():
+        full = dense.lut_sums(nt, fq, rq, flen, rlen, O, kind, tm, tmm, nn)
+        want = fused2.plain_lut_sums(nt, fq, rq, flen, rlen, O, kind, tm,
+                                     tmm, nn)
+        assert torch.equal(full.view(torch.int32), want.view(torch.int32))
+        for op in (2, 4):
+            Oj = O // op
+            for j0 in range(0, O, Oj):
+                got = dense.lut_sums(nt, fq, rq, flen, rlen, O, kind, tm,
+                                     tmm, nn, j0, Oj)
+                want = fused2.plain_lut_sums(nt, fq, rq, flen, rlen, O,
+                                             kind, tm, tmm, nn, j0, Oj)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (kind, op, j0)
+        Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, 2)
+        counts = dense.counts(nt, Fk, Rk, O)
+        for maxoverlap in (0, 200):
+            kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
+                      algo_kind=kind, pmatch=0.0, pmismatch=0.0,
+                      nn=-1.386294, band=fused2.BAND_LUT, lutsum=full)
+            assert torch.equal(
+                dense.shortlist(*counts, flen, rlen, zeros, zeros, **kw),
+                fused2.plain_shortlist(*counts, flen, rlen, zeros, zeros,
+                                       **kw))
+        if O == Lb:
+            kw = dict(L=Lb, algo_kind=kind, nn_term=nn, lut_match=tm,
+                      lut_mismatch=tmm)
+            assert torch.equal(
+                fused2.assemble_shortlist_packed(
+                    torch.cat((nt, fq, rq), dim=1), flen, rlen, zeros,
+                    zeros, **kw),
+                fused2.assemble_shortlist(nt, fq, rq, flen, rlen, zeros,
+                                          zeros, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 384)])
+def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
+    """counts and cand over the row blocks of op 2 and 4: each block
+    equals its twin, the blocks' counts add up to the full-plane
+    kernel's and their masks OR to its mask, exactly."""
+    rng = np.random.default_rng(O)
+    nt, flen, rlen = _nt_planes(rng, 256, Lb)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nt, flen, rlen = map(t, (nt, flen, rlen))
+    Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, 2)
+    full = dense.counts(nt, Fk, Rk, O)
+    full_mask = cand.candidates(Fk, Rk, O, "mask", C)
+    for op in (2, 4):
+        Oj = O // op
+        sums = [torch.zeros_like(x) for x in full]
+        mask = torch.zeros_like(full_mask)
+        for j0 in range(0, O, Oj):
+            got = dense.counts(nt, Fk, Rk, O, j0, Oj)
+            for s, g, w in zip(sums, got,
+                               fused2.plain_counts(nt, Fk, Rk, O, j0, Oj)):
+                assert torch.equal(g, w)
+                s += g
+            m = cand.candidates(Fk, Rk, O, "mask", C, j0, Oj)
+            assert torch.equal(m, fused2.plain_candidates(
+                Fk, Rk, O, "mask", C, j0, Oj))
+            mask |= m
+        for s, f in zip(sums, full):
+            assert torch.equal(s, f)
+        assert torch.equal(mask, full_mask)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("num_kmers", [2, 0])
+def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
+    """A (dp=2, op=2) mesh on one card through the engine gives the CPU
+    engine's bytes; each 64-pair batch splits, so each launches the
+    frames and cand / counts once per mesh cell (4) and the shortlist
+    once per dp row (2); the last batch of 8 splits too."""
+    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch.parallel import shard
+    monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    cfg = oracle.OracleConfig(num_kmers=num_kmers)
+    out = {}
+    for device in ("cpu", "cuda"):
+        cand.reset_launch_counts()
+        mesh = shard.make_mesh(devices=[device] * 4, dp=2, op=2)
+        asm = BatchAssembler(cfg, mesh=mesh)
+        reader = native.NativeBatchReader(
+            os.path.join(DATA, "synth_1.fastq"),
+            os.path.join(DATA, "synth_2.fastq"), batch=64, L=512)
+        out[device] = b"".join(
+            p for _, _, p in asm.emit_stream(reader, depth=2,
+                                             threaded=True))
+        if device == "cuda":
+            path = (("kmer_frames", "cand") if num_kmers
+                    else ("kmer_frames_nt", "counts", "shortlist"))
+            want = dict.fromkeys(cand.KERNELS, 0)
+            for name in path:
+                want[name] = 4 * (2 if name == "shortlist" else 4)
+            assert cand.launch_counts() == want
+    assert out["cpu"] and out["cuda"] == out["cpu"]
+
+
+def test_engine_on_named_card_and_across_cards(dev, monkeypatch):
+    """The engine on the last visible card, named as ``device=``, while
+    cuda:0 stays the current device: every kernel launches on the
+    tensors' card. With several cards, meshes across them too (all on dp,
+    and dp x op=2 when the count is even). All give the CPU engine's
+    bytes; each launches the sparse kernels."""
+    from pandaseq_tpu_torch.parallel import shard
+    monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    n = torch.cuda.device_count()
+    runs = {"cpu": lambda: BatchAssembler(device="cpu"),
+            "named": lambda: BatchAssembler(device="cuda:%d" % (n - 1))}
+    if n > 1:
+        runs["mesh dp"] = lambda: BatchAssembler(mesh=shard.make_mesh())
+        if n % 2 == 0:
+            runs["mesh dp x op"] = lambda: BatchAssembler(
+                mesh=shard.make_mesh(op=2))
+    out = {}
+    with torch.cuda.device(0):
+        for name, make in runs.items():
+            cand.reset_launch_counts()
+            reader = native.NativeBatchReader(
+                os.path.join(DATA, "synth_1.fastq"),
+                os.path.join(DATA, "synth_2.fastq"), batch=64, L=512)
+            out[name] = b"".join(p for _, _, p in make().emit_stream(
+                reader, depth=2, threaded=True))
+            assert torch.cuda.current_device() == 0
+            launched = cand.launch_counts()
+            assert (launched["kmer_frames"] > 0) == (name != "cpu"), name
+    assert out["cpu"] and len(set(out.values())) == 1, sorted(out)

@@ -221,16 +221,24 @@ def test_assemble_shortlist_nt_equals_jax(kind, maxoverlap, num_kmers):
 
 
 def test_lut_kinds_raise():
-    """pear / rdp_mle score LUT sums (K7), not ported: the dense step
-    refuses them instead of scoring something else."""
+    """pear / rdp_mle score LUT sums (K7): the quals-free count step
+    refuses them, as the JAX package's does, and the dense core now
+    scores them. On all-pad planes every LUT term is 0, so the port's
+    core equals the JAX package's bit for bit."""
     nt = torch.zeros((2, 64), dtype=torch.int8)
     lens = torch.full((2,), 50, dtype=torch.int32)
     with pytest.raises(ValueError, match="count-based"):
         tf.assemble_shortlist_nt(nt, lens, lens, lens, lens, L=64,
                                  algo_kind="pear")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tf._shortlist_core(nt, None, None, lens, lens, lens, lens, L=64,
-                           O=64, SL=SL, minoverlap=2, maxoverlap=0,
-                           num_kmers=2, algo_kind="rdp_mle", pmatch=0.0,
-                           pmismatch=0.0, nn=NN, nn_term=0.0, band=None,
-                           lut_match=None, lut_mismatch=None)
+    luts = (tables.QUAL_MATCH_SIMPLE_BAYESIAN - NN,
+            tables.QUAL_MISMATCH_RDP_MLE - NN)
+    q = torch.full((2, 64), 30, dtype=torch.int8)
+    got = tf._shortlist_core(nt, q, q, lens, lens, lens, lens, L=64,
+                             O=64, SL=SL, minoverlap=2, maxoverlap=0,
+                             num_kmers=2, algo_kind="rdp_mle", pmatch=0.0,
+                             pmismatch=0.0, nn=NN, nn_term=0.0, band=None,
+                             lut_match=luts[0], lut_mismatch=luts[1])
+    want = jf.assemble_shortlist(*(x.numpy() for x in (
+        nt, q, q, lens, lens, lens, lens)), L=64, algo_kind="rdp_mle",
+        lut_match=luts[0], lut_mismatch=luts[1])
+    _eq(got, want)

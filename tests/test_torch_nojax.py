@@ -31,6 +31,33 @@ def test_port_cli_runs_without_jax():
     assert want.stdout and got.stdout == want.stdout
 
 
+_NO_JAX_MESH = (
+    "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+    "import numpy as np, torch\n"
+    "from pandaseq_tpu_torch.parallel import distributed, shard\n"
+    "from pandaseq_tpu_torch.ops import cand, dense, fused2\n"
+    "mesh = shard.make_mesh(devices=['cpu'] * 4, op=2)\n"
+    "nt = np.full((4, 64), 0x22, np.int8)\n"
+    "lens = np.full(4, 60, np.int32)\n"
+    "got = shard.make_sharded_cand_step(mesh, L=64)(nt, lens, lens)\n"
+    "want = fused2.assemble_candidates_nt(*map(torch.from_numpy,\n"
+    "                                          (nt, lens, lens)), L=64)\n"
+    "assert torch.equal(got, want) and got.any()\n"
+    "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items()\n"
+    "                     if v is not None]\n"
+    "print('ok')\n")
+
+
+def test_parallel_modules_run_without_jax():
+    """The mesh, the sharded steps and the multi-process runner import and
+    run with ``jax`` unimportable."""
+    got = subprocess.run([sys.executable, "-c", _NO_JAX_MESH],
+                         capture_output=True, env=ENV, cwd=ROOT,
+                         timeout=300)
+    assert got.returncode == 0, got.stderr.decode()[-2000:]
+    assert got.stdout.strip() == b"ok"
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
