@@ -5,20 +5,30 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX. Each phase passes or the script exits nonzero
-without a result line; no phase is caught.
+It imports nothing of JAX and nothing of the JAX package pandaseq_tpu.
+Each phase passes or the script exits nonzero without a result line; no
+phase is caught.
 
 1. The card (nvidia-smi name and power limit), torch and CUDA versions,
    the kernels' build from pandaseq_tpu_torch/csrc (one nvcc per source,
    in parallel; seconds), and the native host library.
 2. Each CUDA kernel against its plain PyTorch twin on the card at B=8192
    (the CLI's batch) and Lb=O in {256, 384, 512}, with CUDA-event times
-   of each kernel and its twin:
-   - the sparse path's kmer_frames and cand, exactly, at num_kmers in
-     {1, 2, 3}, on reads generated by tests/golden/make_data.py --fast
-     (through make_batch and psq_pack4) and on random planes with
-     low-entropy rows; the bitmask also against native.cand_mask, the
-     exact host twin;
+   of each kernel and its twin, and the bound of each (the larger of its
+   bytes over 3.35 TB/s and the operations its function needs over the
+   card's rate for their type; see WORK):
+   - cand_join, the candidate search of every path, exactly: on the
+     4-bit packed plane and on the nibble plane with N, at num_kmers in
+     {0, 1, 2, 3}, list and mask, over the full plane and the row blocks
+     of op 2 and 4 (ORed against the full plane); on reads generated by
+     tests/golden/make_data.py --fast (through make_batch and psq_pack4),
+     on generated reads with N, and on random planes with low-entropy
+     rows; the bitmasks also against native.cand_mask, the exact host
+     twin. It is timed (list, num_kmers 2) in turns with the two kernels
+     it replaced on the main path, kmer_frames + cand, and held to at
+     most half their summed time;
+   - kmer_frames and cand (no engine path runs them any more), exactly,
+     at num_kmers in {1, 2, 3}, on the same packed planes;
    - the dense path's kmer_frames_nt and counts exactly, and shortlist
      exactly or within SHORTLIST_ULPS on its f32 columns, at num_kmers
      in {0, 1, 2, 3} and each of the four score kinds, on generated
@@ -39,7 +49,7 @@ without a result line; no phase is caught.
    PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
    byte-identical and non-empty, the STAT/log line sequence equal, and
    every kernel of the run's path launched once per dispatched batch and
-   the other path's kernels never:
+   every other kernel never (the defaults: cand_join alone):
    - the defaults (simple_bayesian, -k 2) on 500,000 generated 2x250
      pairs, in turns cuda, host, host, cuda; again on the 200-pair
      stream with N bases and B-cliffs (the host fix-up path);
@@ -49,7 +59,7 @@ without a result line; no phase is caught.
    - the engine probe: one unpinned default run on the 200-pair stream
      with an empty probe cache shows INFO ENGINE with reason probe and
      the measured host and device ms; its launch check leaves out the
-     probe's own runtime.PROBE_RUNS launches of each sparse kernel.
+     probe's own runtime.PROBE_RUNS launches of cand_join.
    Pairs/s of both engines beside the card's line.
 4. The mesh engine (parallel/shard.py) on one card: BatchAssembler with
    make_mesh(devices=["cuda:0"] * 4, dp=2, op=2) through emit_stream on
@@ -57,9 +67,9 @@ without a result line; no phase is caught.
    (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
    phase 3, STAT counters equal to the host engine's through the same
    emit_stream loop (which, with the single-device cuda engine, is also
-   timed there), and the launches the split implies (frames and cand / counts
-   once per mesh cell of a split batch, shortlist once per dp row, an
-   unsplit batch once). Then the pear / rdp_mle library path:
+   timed there), and the launches the split implies (cand_join, or the
+   frames and counts, once per mesh cell of a split batch, shortlist once
+   per dp row, an unsplit batch once). Then the pear / rdp_mle library path:
    make_sharded_step on the (2, 2) mesh at B=8192, Lb=O=256 against the
    single-device assemble_shortlist: examined equal, and the shortlist
    sets equal on every row whose SL-th and SL+1-th scores are apart by
@@ -88,7 +98,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-B = 8192  # phase 2's batch: the CLI's default (pandaseq_tpu/cli/main.py)
+B = 8192  # phase 2's batch: the CLI's default (cli/main.py)
 CLI_BATCH = 8192  # the CLI's default batch: one dispatch per batch
 E2E_PAIRS = 500000
 ALGO_PAIRS = 50000
@@ -97,17 +107,20 @@ SL = 8
 SHAPES = (256, 384, 512)  # Lb = O
 READ_SPEC = {256: ("250", "300", "460"), 384: ("380", "400", "700"),
              512: ("450", "500", "850")}  # read length, amplicon range
-SPARSE = ("kmer_frames", "cand")
+SPARSE = ("cand_join",)  # the main path
+OLD_SPARSE = ("kmer_frames", "cand")  # the unfused pair that cand_join replaces
 DENSE = ("kmer_frames_nt", "counts", "shortlist")
 LUT = DENSE + ("lut_sums",)  # the pear / rdp_mle library path
-KERNELS = SPARSE + LUT
-REPLACES = {"kmer_frames": "pandaseq_tpu/ops/fused2.py:119",
+KERNELS = SPARSE + OLD_SPARSE + LUT
+REPLACES = {"cand_join": "pandaseq_tpu/ops/pallas_cand.py:117",
+            "kmer_frames": "pandaseq_tpu/ops/fused2.py:119",
             "cand": "pandaseq_tpu/ops/pallas_cand.py:117",
             "kmer_frames_nt": "pandaseq_tpu/ops/fused2.py:108",
             "counts": "pandaseq_tpu/ops/fused2.py:190",
             "shortlist": "pandaseq_tpu/ops/fused2.py:267",
             "lut_sums": "pandaseq_tpu/ops/fused2.py:218"}
-SOURCES = {"kmer_frames": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
+SOURCES = {"cand_join": "pandaseq_tpu_torch/csrc/cand_join.cu",
+           "kmer_frames": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
            "cand": "pandaseq_tpu_torch/csrc/cand.cu",
            "kmer_frames_nt": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
            "counts": "pandaseq_tpu_torch/csrc/counts.cu",
@@ -123,6 +136,37 @@ SHORTLIST_ULPS = 2
 # the four score kinds of the dense path, each with its algorithm
 SCORE_ALGOS = {"counts": "simple_bayesian", "ea_util": "ea_util",
                "flash": "flash", "stitch": "stitch"}
+# the card's peaks for the bounds (H100 SXM data sheet): device memory;
+# float32 outside the tensor cores is 67 T/s with an FMA counted as two
+# operations on 128 lanes per SM, so a lone f32 add runs at half that;
+# 32-bit integer add, compare, min, max and logic run on 64 lanes per SM
+# (NVIDIA's instruction throughput table for compute capability 9.0): a
+# quarter of it
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = 67e12 / 4
+# cycles of the spin kernel that each timed loop waits behind (~10 ms at
+# the H100's 1.98 GHz): longer than the host takes to queue the loop
+HOLD_CYCLES = 20_000_000
+# {(kernel, Lb): (bytes, int32 ops, f32 ops)} of the timed call, filled
+# where it is timed. Bytes: each input read once and each output written
+# once. Operations: what the function needs on these inputs, whatever
+# the kernel's design:
+# - cand_join and cand (one function): one per emitted forward and per
+#   emitted reverse k-mer, and one per candidate found; a join need not
+#   sort, nor compare every cell;
+# - kmer_frames(_nt): one per frame element written;
+# - counts: 3 per 32 live cells (j, i), j + i < O (a 32-bit word holds
+#   32 cells of a bit-parallel compare);
+# - lut_sums: one f32 add per term after the first of each diagonal;
+# - shortlist: one f32 score and one compare per offset.
+WORK = {}
+# {(kernel, Lb): operations of the kernel's own design}, a diagnostic
+# beside the bound: cand_join 2 per compare-exchange of its bitonic sort
+# over the next power of two >= Lb plus log2 of that per reverse
+# emission (its binary search); cand one compare per live cell of each
+# emitted reverse position; counts 3 per live cell
+DESIGN_OPS = {}
 
 
 def say(*a):
@@ -189,11 +233,16 @@ def shortlist_err(got, want, what):
 
 
 def cuda_ms(fn, reps):
+    """Mean CUDA-event ms of ``reps`` calls of ``fn``, queued behind a
+    spin kernel of HOLD_CYCLES: the host queues the calls while the
+    stream waits, so the events time the card's work and not the rate at
+    which a busy host launches it."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -212,11 +261,25 @@ def paired_ms(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(name, Lb):
+    """(bound ms, "bytes" or "operations") of the timed call (WORK)."""
+    nbytes, int_ops, f32_ops = WORK[(name, Lb)]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def say_times(times, names, Lb, k):
     for name in names:
         ms, pms = times[(name, Lb)]
-        say("time %s B=%d Lb=O=%d k=%d: kernel %.4f ms, plain %.4f ms "
-            "(CUDA events)" % (name, B, Lb, k, ms, pms))
+        bms, by = bound(name, Lb)
+        design = DESIGN_OPS.get((name, Lb))
+        say("time %s B=%d Lb=O=%d k=%d: kernel %.4f ms, plain %.4f ms, "
+            "bound %.5f ms (%s: %d B, %d int32 + %d f32 ops needed%s), "
+            "kernel at %.2f%% of the bound (CUDA events)"
+            % (name, B, Lb, k, ms, pms, bms, by, *WORK[(name, Lb)],
+               "" if design is None else "; design ops %d" % design,
+               100 * bms / ms))
 
 
 def row_blocks(O, op):
@@ -249,13 +312,78 @@ def cand_blocks(Fk, Rk, O, what, errs, times=None):
             "ms (CUDA events)" % (O // 2, B, O, ms, pms))
 
 
+def live_cells(O, rows=None):
+    """Cells (j, i), j + i < O, of the plane per pair: every row i < O
+    (``rows`` None) or the rows where ``rows`` [B, >= O] is emitted
+    (>= 0), summed over the pairs."""
+    import torch
+    if rows is None:
+        return B * O * (O + 1) // 2
+    width = torch.arange(O, 0, -1, device=rows.device)
+    return int(((rows[:, :O] >= 0) * width).sum())
+
+
+def emitted(lens, L):
+    """k-mers emitted over the batch by reads of ``lens`` in a frame of
+    L: positions 0 .. min(len, L) - 9 forward (the gate p <= min(flen -
+    9, L - 9)), 8 .. min(len, L) - 1 reverse; the same count."""
+    import torch
+    return int(torch.clamp(torch.clamp(lens, max=L) - 8, min=0).sum())
+
+
+def join_needed_ops(fl, rlen, Lb, O, lst):
+    """The candidate search's operations on this batch (see WORK): the
+    emitted k-mers of both reads and the candidates of the list [B,
+    C+2] (its count column)."""
+    return emitted(fl, Lb) + emitted(rlen, O) + int(lst[:, 0].sum())
+
+
+def join_ops(Lb, rlen, O):
+    """cand_join's design operations on this batch (see DESIGN_OPS)."""
+    lpad = 1 << (Lb - 1).bit_length()
+    lg = lpad.bit_length() - 1
+    compare_exchanges = lpad // 2 * lg * (lg + 1) // 2
+    return 2 * compare_exchanges * B + lg * emitted(rlen, O)
+
+
+def join_check(plane, fl, rl, Lb, k, nt, what, errs):
+    """cand_join against plain_candidates_join, list and mask, over the
+    full plane and the row blocks of op 2 and 4 (ORed == full), exactly;
+    returns the full mask and list."""
+    import torch
+
+    from pandaseq_tpu_torch.ops import cand, fused2
+    O = Lb
+    args = (plane, fl, rl, Lb, O, k)
+    out = {}
+    for mode in ("list", "mask"):
+        out[mode] = cand.candidates_join(*args, mode, C, nt=nt)
+        errs["cand_join"] = max(errs["cand_join"], exact(
+            out[mode], fused2.plain_candidates_join(*args, mode, C, nt=nt),
+            "%s cand_join %s" % (what, mode)))
+    for op in OPS:
+        acc = torch.zeros_like(out["mask"])
+        for j0, Oj in row_blocks(O, op):
+            got = cand.candidates_join(*args, "mask", C, j0, Oj, nt=nt)
+            errs["cand_join"] = max(errs["cand_join"], exact(
+                got, fused2.plain_candidates_join(*args, "mask", C, j0, Oj,
+                                                  nt=nt),
+                "%s cand_join rows [%d, %d)" % (what, j0, j0 + Oj)))
+            acc |= got
+        exact(acc, out["mask"], "%s cand_join op=%d OR vs the full plane"
+              % (what, op))
+    torch.cuda.synchronize()
+    return out["mask"], out["list"]
+
+
 def sparse_kernels(Lb, batch, rng, errs, times):
-    """kmer_frames and cand against their twins (and native.cand_mask)
-    on generated reads and random planes."""
+    """cand_join (packed plane), kmer_frames and cand against their
+    twins (and native.cand_mask) on generated reads and random planes;
+    cand_join timed in turns with kmer_frames + cand."""
     import numpy as np
     import torch
 
-    from pandaseq_tpu.io import native
+    from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.ops import cand, fused2
 
     dev = torch.device(DEVICE)
@@ -279,36 +407,39 @@ def sparse_kernels(Lb, batch, rng, errs, times):
         fl = torch.from_numpy(np.ascontiguousarray(fl_np, np.int32)).to(dev)
         rlen = torch.from_numpy(np.ascontiguousarray(
             rl_np, np.int32)).to(dev)
-        for k in (1, 2, 3):
+        for k in (0, 1, 2, 3):
             what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
+            mask, lst = join_check(plane, fl, rlen, Lb, k, False, what, errs)
+            over = int((lst[:, 0] > C).sum())
+            if tag == "reads" and k:
+                host = torch.from_numpy(native.cand_mask(
+                    batch, np.arange(B, dtype=np.int64), k, O))
+                exact(mask.cpu(), host, what + " cand_join vs cand_mask")
+            say("%s: cand_join == plain%s (list, mask, row blocks of op "
+                "%s), %d rows with candidates, %d with count > %d"
+                % (what, " == native.cand_mask" if tag == "reads" and k
+                   else "", "/".join(map(str, OPS)),
+                   int((lst[:, 0] > 0).sum()), over, C))
+            if not k:
+                continue
             Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, k)
             Fp, Rp = fused2.plain_kmer_frames(plane, fl, rlen, Lb, k)
             errs["kmer_frames"] = max(
                 errs["kmer_frames"], exact(Fk, Fp, what + " Fkm"),
                 exact(Rk, Rp, what + " Rkm"))
-            out = {}
             for mode in ("list", "mask"):
-                out[mode] = cand.candidates(Fk, Rk, O, mode, C)
+                got = cand.candidates(Fk, Rk, O, mode, C)
                 errs["cand"] = max(errs["cand"], exact(
-                    out[mode], fused2.plain_candidates(Fp, Rp, O, mode, C),
+                    got, fused2.plain_candidates(Fp, Rp, O, mode, C),
                     "%s %s" % (what, mode)))
-            torch.cuda.synchronize()
-            over = int((out["list"][:, 0] > C).sum())
-            if tag == "reads":
-                host = torch.from_numpy(native.cand_mask(
-                    batch, np.arange(B, dtype=np.int64), k, O))
-                exact(out["mask"].cpu(), host, what + " vs cand_mask")
-                say("%s: kernels == plain == native.cand_mask, %d rows "
-                    "with candidates, %d with count > %d"
-                    % (what, int((out["list"][:, 0] > 0).sum()), over, C))
-            else:
-                say("%s: kernels == plain, %d rows with count > %d"
-                    % (what, over, C))
+                exact(got, mask if mode == "mask" else lst,
+                      "%s cand %s vs cand_join" % (what, mode))
             if k == 2:
                 cand_blocks(Fk, Rk, O, what, errs,
                             times if tag == "reads" else None)
-                say("%s: cand row blocks of op %s == plain, OR == full"
-                    % (what, "/".join(map(str, OPS))))
+            say("%s: kmer_frames, cand == plain == cand_join%s"
+                % (what, "; cand row blocks of op %s == plain, OR == full"
+                   % "/".join(map(str, OPS)) if k == 2 else ""))
         if tag == "reads":
             Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
             times[("kmer_frames", Lb)] = paired_ms(
@@ -317,12 +448,55 @@ def sparse_kernels(Lb, batch, rng, errs, times):
             times[("cand", Lb)] = paired_ms(
                 lambda: fused2.plain_candidates(Fk, Rk, O, "list", C),
                 lambda: cand.candidates(Fk, Rk, O, "list", C))
-            say_times(times, SPARSE, Lb, 2)
+            times[("cand_join", Lb)] = paired_ms(
+                lambda: fused2.plain_candidates_join(plane, fl, rlen, Lb, O,
+                                                     2, "list", C),
+                lambda: cand.candidates_join(plane, fl, rlen, Lb, O, 2,
+                                             "list", C))
+            need = join_needed_ops(fl, rlen, Lb, O, cand.candidates_join(
+                plane, fl, rlen, Lb, O, 2, "list", C))
+            WORK[("cand_join", Lb)] = (B * (Lb // 2 + 8 + 2 * (C + 2)),
+                                       need, 0)
+            DESIGN_OPS[("cand_join", Lb)] = join_ops(Lb, rlen, O)
+            WORK[("kmer_frames", Lb)] = (B * (Lb // 2 + 8 + 8 * Lb),
+                                         2 * B * Lb, 0)
+            WORK[("cand", Lb)] = (B * (8 * Lb + 2 * (C + 2)), need, 0)
+            DESIGN_OPS[("cand", Lb)] = live_cells(O, Rk)
+            say_times(times, SPARSE + OLD_SPARSE, Lb, 2)
+            join_vs_pair(plane, fl, rlen, Lb, times)
+
+
+def join_vs_pair(plane, fl, rlen, Lb, times):
+    """cand_join against the two kernels it replaced on the main path,
+    kmer_frames + cand (list, num_kmers 2), CUDA events in turns pair,
+    join, join, pair; exits unless the join takes at most half the
+    pair's time."""
+    from pandaseq_tpu_torch.ops import cand
+
+    def pair():
+        Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
+        return cand.candidates(Fk, Rk, Lb, "list", C)
+
+    def join():
+        return cand.candidates_join(plane, fl, rlen, Lb, Lb, 2, "list", C)
+
+    p1 = cuda_ms(pair, 20)
+    j1 = cuda_ms(join, 20)
+    j2 = cuda_ms(join, 20)
+    p2 = cuda_ms(pair, 20)
+    j, p = (j1 + j2) / 2, (p1 + p2) / 2
+    times[("join_vs_pair", Lb)] = (j, p)
+    say("time B=%d Lb=O=%d k=2 list, in turns: cand_join %.4f ms, "
+        "kmer_frames + cand %.4f ms, ratio %.3f (CUDA events)"
+        % (B, Lb, j, p, j / p))
+    if j > p / 2:
+        raise SystemExit("cand_join at Lb=%d takes %.4f ms, more than half "
+                         "of kmer_frames + cand's %.4f ms" % (Lb, j, p))
 
 
 def _score_params():
     """{score kind: (pmatch, pmismatch)} as the engine passes them."""
-    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch import oracle
     from pandaseq_tpu_torch.assembler import BatchAssembler
     out = {}
     for kind, name in SCORE_ALGOS.items():
@@ -360,8 +534,8 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
     import numpy as np
     import torch
 
-    from pandaseq_tpu import tables
-    from pandaseq_tpu.io import native
+    from pandaseq_tpu_torch import tables
+    from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.ops import dense, fused2
 
     dev = torch.device(DEVICE)
@@ -393,6 +567,9 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
                 counts_blocks(nt, Fk, Rk, O, got, what, errs,
                               times if tag == "reads" else None)
                 cand_blocks(Fk, Rk, O, what + " nt", errs)
+            mask, _ = join_check(nt, fl, rl, Lb, k, True, what + " nt", errs)
+            exact(mask, fused2.plain_candidates(Fp, Rp, O, "mask", C),
+                  what + " nt cand_join vs the frames' mask")
             bands = []
             for kind, (pm, pmm) in params.items():
                 kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=maxoverlap,
@@ -436,6 +613,13 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
             times[("shortlist", Lb)] = paired_ms(
                 lambda: fused2.plain_shortlist(*got, fl, rl, fo, ro, **kw),
                 lambda: dense.shortlist(*got, fl, rl, fo, ro, **kw))
+            WORK[("kmer_frames_nt", Lb)] = (B * (Lb + 8 + 8 * Lb),
+                                            2 * B * Lb, 0)
+            WORK[("counts", Lb)] = (B * (Lb + 8 * Lb + 12 * O),
+                                    3 * live_cells(O) // 32, 0)
+            DESIGN_OPS[("counts", Lb)] = 3 * live_cells(O)
+            WORK[("shortlist", Lb)] = (B * (12 * O + 16 + 4 * (2 * SL + 4)),
+                                       B * O, B * O)
             say_times(times, DENSE, Lb, 0)
 
 
@@ -471,7 +655,7 @@ def counts_blocks(nt, Fk, Rk, O, full, what, errs, times=None):
 def _lut_params():
     """{kind: (lut_match, lut_mismatch, nn_term)} as the engine builds
     them (f64 tables)."""
-    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch import oracle
     from pandaseq_tpu_torch.assembler import BatchAssembler
     out = {}
     for name in LUT_ALGOS:
@@ -546,11 +730,12 @@ def lut_kernels(Lb, batch, rng, luts, errs, times):
             tm, tmm = (fused2.lut_table(x, dev) for x in luts["pear"][:2])
             args = (nt, fq, rq, fl, rl, O, "pear", tm, tmm,
                     luts["pear"][2])
-            times[("lut_sums", Lb)] = ms, pms = paired_ms(
+            times[("lut_sums", Lb)] = paired_ms(
                 lambda: fused2.plain_lut_sums(*args),
                 lambda: dense.lut_sums(*args))
-            say("time lut_sums B=%d Lb=O=%d pear: kernel %.4f ms, plain "
-                "%.4f ms (CUDA events)" % (B, Lb, ms, pms))
+            WORK[("lut_sums", Lb)] = (B * (3 * Lb + 8 + 4 * O), 0,
+                                      live_cells(O) - B * O)
+            say_times(times, ("lut_sums",), Lb, 2)
 
 
 def phase_kernels(tmp, errs):
@@ -559,8 +744,8 @@ def phase_kernels(tmp, errs):
     parameters)."""
     import numpy as np
 
-    from pandaseq_tpu.assembler import make_batch
-    from pandaseq_tpu.io import fastq as fq
+    from pandaseq_tpu_torch.assembler import make_batch
+    from pandaseq_tpu_torch.io import fastq as fq
 
     rng = np.random.default_rng(11)
     started = {}
@@ -767,8 +952,8 @@ def emit_run(asm, f1, f2, out_path):
     native reader with the _pre stage on the prefetch thread, at the
     CLI's batch, ring and depth. Returns (seconds, batch sizes, STAT
     counters)."""
-    from pandaseq_tpu.io import native
-    from pandaseq_tpu.io.prefetch import prefetch
+    from pandaseq_tpu_torch.io import native
+    from pandaseq_tpu_torch.io.prefetch import prefetch
 
     reader = native.NativeBatchReader(f1, f2, batch=CLI_BATCH, L=512,
                                       ring=25)
@@ -883,7 +1068,7 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     """Phase 4: the mesh engine on one card against the CLI runs of
     phase 3 and the host engine; then the LUT library path on the mesh.
     Returns the LUT path's launch counts."""
-    from pandaseq_tpu import oracle
+    from pandaseq_tpu_torch import oracle
     from pandaseq_tpu_torch.assembler import BatchAssembler
     from pandaseq_tpu_torch.ops import cand
     from pandaseq_tpu_torch.parallel import shard
@@ -1045,7 +1230,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from pandaseq_tpu.io import native
+    from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.ops import _build
 
     os.environ["PANDASEQ_TORCH_DEVICE"] = "cuda"
@@ -1082,13 +1267,16 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         ms, pms = times[(name, 256)]
-        path = ("sparse" if name in SPARSE else "lut" if name == "lut_sums"
-                else "dense")
+        bms, by = bound(name, 256)
+        path = ("sparse" if name in SPARSE + OLD_SPARSE
+                else "lut" if name == "lut_sums" else "dense")
+        # no single PyTorch call computes any of these functions
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": counts[path][name],
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": pms})
+                        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """pandaseq_tpu_torch: the PyTorch / CUDA port of pandaseq_tpu.
 
 The same paired-end read merger (PANDAseq-compatible, byte-identical
-output), with the k-mer candidate search of the default merge path in
-two hand-written CUDA kernels for NVIDIA Hopper (ops/cand.py) and plain
-PyTorch twins for the CPU (ops/fused2.py). The JAX-free host modules of
-``pandaseq_tpu`` (native decoder and finalizer, oracle, filters, I/O,
-tables) are reused by import; this package never imports JAX.
+output), with the device steps in hand-written CUDA kernels for NVIDIA
+Hopper (ops/cand.py, ops/dense.py; the default merge path's candidate
+search is one sort-join kernel, cand_join) and plain PyTorch versions
+for the CPU (ops/fused2.py). The host modules (native
+decoder and finalizer bindings, oracle, filters, I/O, tables) are the
+port's own copies of ``pandaseq_tpu``'s; this package imports neither
+JAX nor ``pandaseq_tpu``.
 
 Quick start::
 
@@ -27,12 +29,12 @@ def __getattr__(name):
         from .api import Assembler
         return Assembler
     if name == "OracleConfig":
-        from pandaseq_tpu.oracle import OracleConfig
+        from .oracle import OracleConfig
         return OracleConfig
     if name == "make_algorithm":
-        from pandaseq_tpu.oracle import make_algorithm
+        from .oracle import make_algorithm
         return make_algorithm
     if name == "IdSet":
-        from pandaseq_tpu.idset import IdSet
+        from .idset import IdSet
         return IdSet
     raise AttributeError(name)

@@ -1,8 +1,12 @@
-"""The ``pandaseq`` command-line interface of the PyTorch port.
+"""The ``pandaseq`` command-line interface of the PyTorch port,
+flag-compatible with the reference (args.c, args_fastq.c,
+args_assembler.c).
 
-Flag parsing, configuration and output helpers are the JAX package's
-(``pandaseq_tpu.cli.main``); ``run`` is that module's ``run`` with the
-device seams replaced: no JAX platform switch and no compilation cache,
+Flag parsing, configuration and output helpers (``VERSION``,
+``ArgsError``, ``Config``, ``parse_args``, ``_err``, ``_open_out``) are
+the port's copies of ``pandaseq_tpu/cli/main.py``'s; ``run`` is that
+module's ``run`` with the device seams replaced: no JAX platform switch
+and no compilation cache,
 the port's ``BatchAssembler`` (device from ``PANDASEQ_TORCH_DEVICE``,
 default ``cuda``; engine from the pins or the measured probe), a
 ``torch.profiler`` trace under ``PANDASEQ_TPU_PROFILE``, and a dispatch
@@ -14,21 +18,323 @@ does not have.
 
 from __future__ import annotations
 
+import bz2 as bz2_mod
+import getopt
 import math
 import os
 import sys
 
 import numpy as np
 
-from pandaseq_tpu import filters, stats
-from pandaseq_tpu.cli.main import (VERSION, ArgsError, Config, _err,
-                                   _open_out, parse_args)
-from pandaseq_tpu.io import fastq as fq
-from pandaseq_tpu.io import output as out_mod
-
-from ..assembler import BatchAssembler
+from .. import filters, oracle, stats
+from .. import seqid as seqid_mod
+from ..assembler import BatchAssembler, Counters
+from ..io import fastq as fq
+from ..io import native
+from ..io import output as out_mod
+from ..io.prefetch import prefetch
+from ..nt import nt_from_ascii, nt_from_ascii_complement
 
 __all__ = ["Config", "main", "parse_args", "run"]
+
+VERSION = "pandaseq_tpu 1.0 (pandaseq 2.11 compatible)"
+MAX_LEN = 450
+
+# flag -> takes_argument (merged general+fastq+assembler tweak tables)
+_OPTSTRING = "6aA:BC:d:D:f:Fg:G:hi:jk:l:L:No:O:p:q:r:t:T:u:U:vw:W:"
+
+
+class ArgsError(Exception):
+    pass
+
+
+def _safe_int(arg):
+    try:
+        return int(arg, 10)
+    except ValueError:
+        return None
+
+
+def _err(msg):
+    sys.stderr.write(msg + "\n")
+
+
+def show_help(logger, prog="pandaseq"):
+    """Auto help (args.c:203-274): usage line, flag help, algorithm and
+    module listings."""
+    _err("%s <%s>" % (VERSION, "pandaseq_tpu"))
+    usage = ("Usage: %s -f forward.fastq -r reverse.fastq "
+             "[-6] [-a] [-A algorithm:parameters] [-B] [-C module1 -C "
+             "module2 ...] [-d flags] [-D threshold] [-F] [-g log.txt | "
+             "-G log.txt.bz2] [-h] [-i index.fastq] [-k kmers] [-l length] "
+             "[-L length] [-N] [-o length] [-O length] [-p primer] "
+             "[-q primer] [-t threshold] [-T threads] [-u unaligned.txt | "
+             "-U unaligned.txt] [-v] [-w output.fasta | -W "
+             "output.fasta.bz2]" % prog)
+    _err(usage)
+    for line in [
+        "\t-6\tUse PHRED+64 (CASAVA 1.3-1.7) instead of PHRED+33 "
+        "(CASAVA 1.8+).",
+        "\t-a\tStrip the primers after assembly, rather than before.",
+        "\t-A algorithm:parameters\tThe algorithm to use for assembly.",
+        "\t-B\tAllow unbarcoded sequences (try this for BADID errors).",
+        "\t-C module\tLoad a pluggable filter module.",
+        "\t-d flags\tControl the logging messages. Capital to enable; "
+        "small to disable.",
+        "\t-D threshold\tPenalise primers if the further they are from "
+        "the start of the sequence.",
+        "\t-f forward.fastq\tInput FASTQ file containing forward reads.",
+        "\t-F\tOutput FASTQ instead of FASTA.",
+        "\t-g log.txt\tOutput log to a text file.",
+        "\t-G log.txt.bz2\tOutput log to a BZip2-compressed text file.",
+        "\t-h\tShow this delightful nonsense.",
+        "\t-i index.fastq\tInput FASTQ file containing separate "
+        "barcode/index reads.",
+        "\t-j\tInput files are bzipped. (Deprecated.)",
+        "\t-k kmers\tThe number of k-mers in the table.",
+        "\t-l length\tMinimum length for a sequence.",
+        "\t-L length\tMaximum length for a sequence.",
+        "\t-N\tEliminate all sequences with unknown nucleotides in the "
+        "output.",
+        "\t-o length\tMinumum overlap region length for a sequence.",
+        "\t-O length\tMaximum overlap region length for a sequence. "
+        "(0 to use read length.)",
+        "\t-p primer\tForward primer sequence or number of bases to be "
+        "removed.",
+        "\t-q primer\tReverse primer sequence or number of bases to be "
+        "removed.",
+        "\t-t threshold\tThe minimum probability that a sequence must "
+        "have to assemble and, if used, match a primer.",
+        "\t-T threads\tRun with a number of parallel threads.",
+        "\t-u unaligned.txt\tFile to write unalignable read pairs.",
+        "\t-U unaligned.txt\tFile to write unalignable read pairs with "
+        "quality scores.",
+        "\t-v\tShow version and exit.",
+        "\t-w output.fasta\tOutput seqences to a FASTA (or FASTQ) file.",
+        "\t-W output.fasta.bz2\tOutput seqences to a BZip2-compressed "
+        "FASTA (or FASTQ) file.",
+    ]:
+        _err(line)
+    from .. import algorithms
+    _err("Available algorithms:")
+    for name in algorithms.list_algorithms():
+        _err("\t%s" % name)
+    _err("Available modules:")
+    filters.show_all(logger)
+
+
+def _parse_primer(argument: str, direction: str, complement: bool):
+    """set_primer (args_assembler.c:177-213): a number means trim-count,
+    otherwise a primer sequence."""
+    try:
+        offset = int(argument, 10)
+        is_num = True
+    except ValueError:
+        is_num = False
+    if not is_num:
+        conv = nt_from_ascii_complement if complement else nt_from_ascii
+        codes = conv(np.frombuffer(argument.encode(), dtype=np.uint8))
+        if np.any(codes == 0):
+            _err("ERR\tBADNT\t%cPRIMER" % direction[0].upper())
+            raise ArgsError("primer")
+        return None, codes
+    if offset < 1 or offset > MAX_LEN:
+        _err("Bad %s primer length." % direction)
+        raise ArgsError("primer")
+    return offset, None
+
+
+class Config:
+    def __init__(self):
+        self.cfg = oracle.OracleConfig()
+        self.modules = []
+        self.qualmin = 33
+        self.policy = seqid_mod.TAG_PRESENT
+        self.fwd_file = None
+        self.rev_file = None
+        self.index_file = None
+        self.fastq_out = False
+        self.out_path = None
+        self.out_bz2 = False
+        self.log_path = None
+        self.log_bz2 = False
+        self.fail_path = None
+        self.fail_qual = False
+        self.threads = None
+        self.debug_flags = stats.DEBUG_DEFAULT
+        self.minlen = None
+        self.maxlen = None
+        # 8192-pair batches x dispatch group 4 = 32768 pairs per device
+        # call, amortizing the wire's fixed per-dispatch floor; override
+        # via PANDASEQ_TPU_BATCH (the device step scales monotonically
+        # in B; decode ring memory scales with it, ~0.6 GB at 8192)
+        self.batch = int(os.environ.get("PANDASEQ_TPU_BATCH", "8192"))
+
+
+def parse_args(argv, prog="pandaseq"):
+    """Returns (Config, logger) or raises ArgsError/SystemExit."""
+    c = Config()
+    module_specs = []
+    try:
+        opts, rest = getopt.getopt(argv, _OPTSTRING)
+    except getopt.GetoptError as e:
+        _err(str(e))
+        raise ArgsError("getopt")
+    if rest:
+        _err("Unknown argument: %s" % rest[0])
+        raise ArgsError("extra")
+    seen = set()
+    for flag, arg in opts:
+        f = flag[1]
+        if f in seen and f not in ("C",):  # repeats rejected (args.c:93)
+            _err("The argument -%c may only be specified once." % f)
+            raise ArgsError("repeat")
+        seen.add(f)
+        if f == "6":
+            c.qualmin = 64
+        elif f == "a":
+            c.cfg.post_primers = True
+        elif f == "A":
+            from .. import algorithms
+            name, _, algo_arg = arg.partition(":")
+            try:
+                c.cfg.algorithm = algorithms.make_algorithm(
+                    name, algo_arg or None)
+            except (KeyError, ValueError) as e:
+                _err("Unknown algorithm: %s" % name
+                     if isinstance(e, KeyError) else str(e))
+                raise ArgsError("algorithm")
+        elif f == "B":
+            c.policy = seqid_mod.TAG_OPTIONAL
+        elif f == "C":
+            module_specs.append(("C", arg))
+        elif f == "d":
+            c.debug_flags = stats.parse_debug_flags(arg, c.debug_flags)
+        elif f == "D":
+            try:
+                v = float(arg)
+            except ValueError:
+                v = -1
+            if v < 0:
+                _err("Bad threshold: %s. It should be between 0 and 1."
+                     % arg)
+                raise ArgsError("penalty")
+            c.cfg.primer_penalty = v
+        elif f == "f":
+            c.fwd_file = arg
+        elif f == "F":
+            c.fastq_out = True
+        elif f == "g":
+            c.log_path, c.log_bz2 = arg, False
+        elif f == "G":
+            c.log_path, c.log_bz2 = arg, True
+        elif f == "h":
+            logger = stats.LogProxy()
+            show_help(logger, prog)
+            raise SystemExit(1)
+        elif f == "i":
+            c.index_file = arg
+        elif f == "j":
+            _err("-j option is no longer necessary. Compression is "
+                 "auto-detected.")
+        elif f == "k":
+            try:
+                v = int(arg)
+            except ValueError:
+                v = -1
+            if v < 0 or v > 127:
+                _err("Bad k-mer list length.")
+                raise ArgsError("kmers")
+            c.cfg.num_kmers = v
+        elif f == "l":
+            v = _safe_int(arg)
+            if v is None or v < 0 or v > 2 * MAX_LEN:
+                _err("Bad minimum length.")
+                raise ArgsError("minlen")
+            module_specs.append(("l", v))
+        elif f == "L":
+            v = _safe_int(arg)
+            if v is None or v < 1 or v > 2 * MAX_LEN:
+                _err("Bad maximum length.")
+                raise ArgsError("maxlen")
+            module_specs.append(("L", v))
+        elif f == "N":
+            module_specs.append(("N", None))
+        elif f == "o":
+            v = _safe_int(arg)
+            if v is None or v < 1 or v > 2 * MAX_LEN:
+                _err("Bad overlap length.")
+                raise ArgsError("minoverlap")
+            # the args layer accepts [1, 900] but the setter silently
+            # ignores anything outside (1, 900) — so -o 1 and -o 900
+            # leave the default of 2 (assembler_support.c:276-282)
+            if v > 1 and v < 2 * MAX_LEN:
+                c.cfg.minoverlap = v
+        elif f == "O":
+            v = _safe_int(arg)
+            if v is None or v < 0 or v > 2 * MAX_LEN:
+                _err("Bad overlap length.")
+                raise ArgsError("maxoverlap")
+            # setter guard is < 2*MAX_LEN, so -O 900 is silently
+            # ignored (assembler_support.c:289-295)
+            if v < 2 * MAX_LEN:
+                c.cfg.maxoverlap = v
+        elif f == "p":
+            trim, codes = _parse_primer(arg, "forward", complement=False)
+            if codes is not None:
+                # set_forward_primer ignores length >= MAX_LEN
+                # (assembler_support.c:203-213)
+                if len(codes) < MAX_LEN:
+                    c.cfg.forward_primer = codes
+            else:
+                c.cfg.forward_trim = trim
+        elif f == "q":
+            trim, codes = _parse_primer(arg, "reverse", complement=True)
+            if codes is not None:
+                if len(codes) < MAX_LEN:
+                    c.cfg.reverse_primer = codes
+            else:
+                c.cfg.reverse_trim = trim
+        elif f == "r":
+            c.rev_file = arg
+        elif f == "t":
+            try:
+                v = float(arg)
+            except ValueError:
+                v = -1
+            if v < 0 or v > 1:
+                _err("Bad threshold: %s. It should be between 0 and 1."
+                     % arg)
+                raise ArgsError("threshold")
+            c.cfg.threshold = math.log(v)
+        elif f == "T":
+            v = _safe_int(arg)
+            if v is None or v < 1:
+                _err("Bad number of threads.")
+                raise ArgsError("threads")
+            c.threads = v
+        elif f == "u":
+            c.fail_path, c.fail_qual = arg, False
+        elif f == "U":
+            c.fail_path, c.fail_qual = arg, True
+        elif f == "v":
+            _err(VERSION)
+            raise SystemExit(1)
+        elif f == "w":
+            c.out_path, c.out_bz2 = arg, False
+        elif f == "W":
+            c.out_path, c.out_bz2 = arg, True
+
+    c.module_specs = module_specs
+    return c
+
+
+def _open_out(path, use_bz2):
+    if path is None or path == "-":
+        return sys.stdout.buffer, False
+    if use_bz2:
+        return bz2_mod.open(path, "wb"), True
+    return open(path, "wb"), True
 
 
 def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
@@ -97,7 +403,6 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
     native_reader = None
     if ((reader_wrapper is None or batch_wrapper is not None)
             and not os.environ.get("PANDASEQ_TPU_NO_NATIVE")):
-        from pandaseq_tpu.io import native
         try:
             if native.get_lib() is not None:
                 # ring: the emit pipeline holds at most depth(6) +
@@ -164,7 +469,6 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
             if pairs:
                 yield pairs
 
-    from pandaseq_tpu.io.prefetch import prefetch
     done = 0
 
     def handle_reject(pair, code, res):
@@ -187,12 +491,10 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
                                    | stats.DEBUG_MISMATCH)
     debug_replay = None
     if detail_bits:
-        from pandaseq_tpu import oracle as _oracle
-
         def debug_replay(pair):
             def dbg(bit, code, msg):
                 logger.write(code, sid=pair.sid, message=msg, flag=bit)
-            _oracle.assemble(c.cfg, pair, dbg=dbg)
+            oracle.assemble(c.cfg, pair, dbg=dbg)
 
     # per-thread STAT emulation (-T N): the reference prints each worker
     # assembler's OWN final counter block (pool.c:83-104); batches are
@@ -200,8 +502,7 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
     # schema (N blocks whose tallies sum to the totals) is preserved
     # deterministically. Work distribution differs from the pthread
     # pool's (which is scheduling-dependent and nondeterministic).
-    from pandaseq_tpu.assembler import Counters as _Counters
-    vcounters = [_Counters() for _ in range(threads)] if threads > 1 \
+    vcounters = [Counters() for _ in range(threads)] if threads > 1 \
         else None
     batch_no = 0
 
@@ -222,9 +523,8 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
     # the byte-emission fast path also covers filter-module configs
     # when every check-stage module has a vectorized check_batch (all
     # built-ins do); custom python modules fall to the general path
-    from pandaseq_tpu.io import native as _native_mod
     use_emit = (not c.cfg.post_primers and debug_replay is None
-                and _native_mod.get_lib() is not None
+                and native.get_lib() is not None
                 and all(m.check is None or m.check_batch is not None
                         for m in c.modules))
     if use_emit:

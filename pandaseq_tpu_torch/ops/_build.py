@@ -8,7 +8,7 @@ the package's own sources, into ``build/kernels/`` beside the package.
 The library's name carries a hash of the sources and flags; it is
 written to a temporary file and renamed, so a rebuild never rewrites a
 library that a running process has loaded (as
-``pandaseq_tpu/io/native.py`` does for the host library). ``nvcc``'s
+``io/native.py`` does for the host library). ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
 kept beside the library as ``.log``.
 """
@@ -24,8 +24,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("kmer_frames.cu", "cand.cu", "counts.cu", "shortlist.cu",
-           "lut_sums.cu")
+SOURCES = ("cand_join.cu", "kmer_frames.cu", "cand.cu", "counts.cu",
+           "shortlist.cu", "lut_sums.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
 BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -94,6 +94,10 @@ def load() -> ctypes.CDLL:
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
             F = ctypes.c_float
             sigs = {
+                "psq_cuda_cand_join": [P, P, P, L, I, I, I, I, I, I, I, P,
+                                       P],
+                "psq_cuda_cand_join_nt": [P, P, P, L, I, I, I, I, I, I, I,
+                                          P, P],
                 "psq_cuda_kmer_frames": [P, P, P, P, P, L, I, I, P],
                 "psq_cuda_kmer_frames_nt": [P, P, P, P, P, L, I, I, P],
                 "psq_cuda_cand": [P, P, L, I, I, I, I, I, I, P, P],

@@ -1,7 +1,14 @@
-"""Wrappers of the sparse path's CUDA kernels (csrc/kmer_frames.cu and
-csrc/cand.cu) — the counterpart of ``pandaseq_tpu/ops/pallas_cand.py`` —
-and the launch counts of every kernel of the port (the dense path's
-wrappers are in ``ops/dense.py``).
+"""Wrappers of the sparse path's CUDA kernels — the counterpart of
+``pandaseq_tpu/ops/pallas_cand.py`` — and the launch counts of every
+kernel of the port (the dense path's wrappers are in ``ops/dense.py``).
+
+``candidates_join`` (csrc/cand_join.cu) is the candidate search of every
+path: frames, rank and hit search of a pair in one sort-join kernel, on
+the 4-bit packed plane or, ``nt=True``, the nibble plane with N.
+``kmer_frames`` (csrc/kmer_frames.cu) and ``candidates`` (csrc/cand.cu)
+computed the same in two launches; no engine path calls them any more,
+and they stay only so that the smoke test times them beside
+``candidates_join`` on one card.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take, allocates the outputs with
@@ -20,8 +27,8 @@ import torch
 
 from . import _build
 
-KERNELS = ("kmer_frames", "cand", "kmer_frames_nt", "counts", "shortlist",
-           "lut_sums")
+KERNELS = ("cand_join", "kmer_frames", "cand", "kmer_frames_nt", "counts",
+           "shortlist", "lut_sums")
 # launches of each kernel since the last reset_launch_counts()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -62,18 +69,61 @@ def _row_block(O, j0, Oj):
     return Oj
 
 
-def _launch(dev, kernel, *args) -> None:
-    """Launch ``kernel`` through its entry point ``psq_cuda_<kernel>``
-    with ``args`` and the current stream of ``dev``, with ``dev`` the
-    current device; raise on a CUDA error, else count the launch."""
+def _launch(dev, kernel, *args, entry=None) -> None:
+    """Launch ``kernel`` through its entry point ``psq_cuda_<entry>``
+    (``entry`` defaults to the kernel's name) with ``args`` and the
+    current stream of ``dev``, with ``dev`` the current device; raise on
+    a CUDA error, else count the launch."""
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = getattr(lib, "psq_cuda_" + kernel)(
+        err = getattr(lib, "psq_cuda_" + (entry or kernel))(
             *args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.psq_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
     _LAUNCHES[kernel] += 1
+
+
+def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, j0=0,
+                    Oj=None, nt=False):
+    """Candidate list ([B, C+2] int16, ``mode="list"``) or bitmask
+    ([B, O//32] int32, ``mode="mask"``) on the card, over plane rows
+    [j0, j0+Oj), straight from the 4-bit packed plane4 [B, L/2] int8
+    (every base taken as non-N) or, with ``nt``, the nibble-packed plane
+    [B, L] int8 with the true N positions; flen/rlen [B] int32 (plain
+    version: fused2.plain_candidates_join)."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError(f"candidates_join runs on a CUDA device, not {dev}")
+    if mode not in _MODES:
+        raise ValueError(f"unknown candidate mode {mode!r}")
+    if nt:
+        if not 9 <= L <= MAX_WIDTH:
+            raise ValueError(f"frame width {L} must be in [9, {MAX_WIDTH}]")
+    elif L % 8 or not 0 < L <= MAX_WIDTH:
+        raise ValueError(f"frame width {L} must be a multiple of 8 in "
+                         f"(0, {MAX_WIDTH}]")
+    if O % 32 or not 0 < O <= L:
+        raise ValueError(f"O={O} must be a multiple of 32 in (0, {L}]")
+    Oj = _row_block(O, j0, Oj)
+    if mode == "list" and not 0 < C <= O:
+        raise ValueError(f"C={C} must be in (0, {O}]")
+    if num_kmers < 0:
+        raise ValueError(f"num_kmers must be >= 0, got {num_kmers}")
+    B = plane.shape[0]
+    _check(plane, "plane", torch.int8, (B, L if nt else L // 2), dev)
+    _check(flen, "flen", torch.int32, (B,), dev)
+    _check(rlen, "rlen", torch.int32, (B,), dev)
+    if mode == "list":
+        out = torch.empty((B, C + 2), dtype=torch.int16, device=dev)
+    else:
+        out = torch.empty((B, O // 32), dtype=torch.int32, device=dev)
+    if B:
+        _launch(dev, "cand_join", plane.data_ptr(), flen.data_ptr(),
+                rlen.data_ptr(), B, L, O, int(j0), int(Oj), int(num_kmers),
+                _MODES[mode], int(C), out.data_ptr(),
+                entry="cand_join_nt" if nt else None)
+    return out
 
 
 def kmer_frames(plane4, flen, rlen, L, num_kmers):

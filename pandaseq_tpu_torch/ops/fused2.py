@@ -28,7 +28,9 @@ Two kinds of function live here:
   ``ops/dense.py`` argument for argument (``PLAIN_OPS`` against
   ``device_ops(cuda)``), so the kernels can be held against them on the
   card, and the row-block forms (``j0``, ``Oj``) serve the op-sharded
-  steps of ``parallel/shard.py``;
+  steps of ``parallel/shard.py``. ``cand_mask_join`` is the port of the
+  JAX package's sorted join (K9), the CPU's mask step under
+  ``PANDASEQ_TPU_JOIN``;
 * the public entry points ``assemble_candidates_list_packed4``,
   ``assemble_candidates_packed4``, ``assemble_candidates_nt``,
   ``assemble_shortlist_nt``, ``assemble_shortlist`` and
@@ -38,20 +40,20 @@ Two kinds of function live here:
   wrapper raises). There is no fallback from one to the other.
 
 ``build_ptable`` is the port's copy of the JAX package's host table (plain
-numpy): the f64 probability table and the PHRED byte table built from it
-are the state that crosses from the JAX package, and the tests hold them
-to the reference's bit for bit.
+numpy); the tests hold the f64 probability table and the PHRED byte
+table built from it to the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pandaseq_tpu import tables
+from .. import tables
 
 KMER_LEN = 8  # misc.h:33
 
@@ -60,7 +62,7 @@ _KCODE = np.zeros(16, dtype=np.int32)
 _KCODE[8], _KCODE[4], _KCODE[2] = 3, 2, 1
 
 # first-C candidate offsets shipped per pair; count > C rows are
-# recomputed on host by the engine (pandaseq_tpu/assembler.py
+# recomputed on host by the engine (assembler.py
 # _mask_from_list), exactly as in the JAX package
 CAND_LIST_C = 4
 
@@ -475,6 +477,92 @@ def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C, j0=0, Oj=None):
     raise ValueError(f"unknown candidate mode {mode!r}")
 
 
+def plain_candidates_join(plane, flen, rlen, L, O, num_kmers, mode,
+                          C=CAND_LIST_C, j0=0, Oj=None, nt=False):
+    """Plain version of the ``cand_join`` kernel: the frames of the
+    4-bit packed plane (``plain_kmer_frames``) or, with ``nt``, of the
+    nibble plane with N (``plain_kmer_frames_nt``), then the candidate
+    list or mask over plane rows [j0, j0+Oj) (``plain_candidates``)."""
+    frames = plain_kmer_frames_nt if nt else plain_kmer_frames
+    Fkm, Rkm = frames(plane, flen, rlen, L, num_kmers)
+    return plain_candidates(Fkm, Rkm, O, mode, C, j0, Oj)
+
+
+def cand_mask_join(cf, nonn_f, cr, nonn_r, flen, rlen, L, O, num_kmers):
+    """Candidate bitmask [B, O//32] int32 through a sorted k-mer join,
+    O(L log L) per pair (K9, pandaseq_tpu/ops/fused2.py cand_mask_join,
+    step for step): one sort of the forward emissions together with the
+    reverse-emission probes, reverse cumulative minima that carry each
+    k-mer run's stored occurrences to its probes, and an OR pack.
+
+    Under the key (kmer << 11 | 1024 | (L-1-j')) ascending order within
+    one k-mer's run is raw order, so the first ``num_kmers`` keys of a
+    run are the kmerseen-stored positions; a probe key (kmer << 11 | i)
+    sorts before its run's sources. Propagation round t carries the
+    t-th stored source of the run to the probe:
+
+        m_0 = source ? key : INF          r_0 = rcummin(m_0)
+        m_t = source ? r_{t-1}[i+1] : INF r_t = rcummin(m_t)
+
+    and each (stored j', probe i) k-mer match sets offset o = j'+i+1 <=
+    O. The JAX package runs it for ``num_kmers`` <= 2 only
+    (PANDASEQ_TPU_JOIN); so does the engine here."""
+    B = cf.shape[0]
+    W = O // 32
+    dev = cf.device
+    if num_kmers <= 0:  # nothing stored -> empty mask
+        return torch.zeros((B, W), dtype=torch.int32, device=dev)
+    if L > MAX_FRAME:
+        raise ValueError(f"frame width {L} exceeds {MAX_FRAME}")
+    cf = cf.to(torch.int32)
+    cr = cr.to(torch.int32)
+    flen = flen.to(torch.int32)
+    rlen = rlen.to(torch.int32)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    kf = _kmer_lead(cf, L)
+    kr = _kmer_trail(cr, L)
+    emit_f = _window9_lead(nonn_f, L) & (pos <= flen[:, None] - 9)
+    emit_r = (_window9_trail(nonn_r, L) & (pos >= KMER_LEN)
+              & (pos < rlen[:, None]))
+    # one int32 key: kmer << 11 | src << 10 | pos10; lanes that emit
+    # nothing park above 2^29, distinct per lane
+    src_v = torch.where(emit_f, (kf << 11) | 1024 | (L - 1 - pos),
+                        0x20000000 | 1024 | pos)
+    prb_v = torch.where(emit_r, (kr << 11) | pos, 0x28000000 | pos)
+    v = torch.sort(torch.cat([src_v, prb_v], dim=1), dim=1).values
+    is_src = (v & 1024) != 0
+    inf = 0x7FFFFFFF
+    inf_col = torch.full((B, 1), inf, dtype=torch.int32, device=dev)
+    kmer_lane = v >> 11
+    i_lane = v & 1023  # the probe's reverse position at probe lanes
+    r_prev = None
+    cand = []
+    for _ in range(num_kmers):
+        m = torch.where(is_src,
+                        v if r_prev is None
+                        else torch.cat([r_prev[:, 1:], inf_col], dim=1),
+                        inf)
+        r = torch.cummin(m.flip(1), dim=1).values.flip(1)
+        ok = ~is_src & ((r >> 11) == kmer_lane)
+        o = (L - 1 - (r & 1023)) + i_lane + 1
+        ok &= (o >= 1) & (o <= O)
+        cand.append(torch.where(ok, o - 1, -1))
+        r_prev = r
+    # pack: distinct offsets of each row, sum of distinct powers == OR
+    so = torch.sort(torch.cat(cand, dim=1), dim=1).values
+    uniq = (so >= 0) & torch.cat(
+        [torch.ones((B, 1), dtype=torch.bool, device=dev),
+         so[:, 1:] != so[:, :-1]], dim=1)
+    word = so >> 5
+    bit = torch.where(uniq, torch.ones_like(so, dtype=torch.int64)
+                      << (so & 31).to(torch.int64), 0)
+    words = torch.stack([torch.where(word == w, bit, 0).sum(dim=1)
+                         for w in range(W)], dim=1)
+    # reinterpret the unsigned 32-bit pattern as int32
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
 def _nibbles(nt):
     """(nt_f, nt_r) int32: the forward read's low nibble and the reverse
     read's high nibble of the nibble-packed plane (bytes unsigned)."""
@@ -529,17 +617,15 @@ def plain_shortlist(m, unk, candc, flen, rlen, fo, ro, *, O, SL,
 class DeviceOps(NamedTuple):
     """One implementation of each device op, with the kernel wrappers'
     names and arguments."""
-    kmer_frames: Callable
-    candidates: Callable
+    candidates_join: Callable
     kmer_frames_nt: Callable
     counts: Callable
     lut_sums: Callable
     shortlist: Callable
 
 
-PLAIN_OPS = DeviceOps(plain_kmer_frames, plain_candidates,
-                      plain_kmer_frames_nt, plain_counts, plain_lut_sums,
-                      plain_shortlist)
+PLAIN_OPS = DeviceOps(plain_candidates_join, plain_kmer_frames_nt,
+                      plain_counts, plain_lut_sums, plain_shortlist)
 
 
 def device_ops(dev) -> DeviceOps:
@@ -549,9 +635,8 @@ def device_ops(dev) -> DeviceOps:
     dev = torch.device(dev)
     if dev.type == "cuda":
         from . import cand, dense
-        return DeviceOps(cand.kmer_frames, cand.candidates,
-                         dense.kmer_frames_nt, dense.counts, dense.lut_sums,
-                         dense.shortlist)
+        return DeviceOps(cand.candidates_join, dense.kmer_frames_nt,
+                         dense.counts, dense.lut_sums, dense.shortlist)
     if dev.type == "cpu":
         return PLAIN_OPS
     raise ValueError(f"no device step for device {dev}")
@@ -583,9 +668,8 @@ def _step_inputs(plane, lens, L, O, quals=()):
 
 def _candidates_packed4(plane4, flen, rlen, L, O, num_kmers, mode, C):
     plane4, _, (flen, rlen), O = _step_inputs(plane4, (flen, rlen), L, O)
-    ops = device_ops(plane4.device)
-    Fkm, Rkm = ops.kmer_frames(plane4, flen, rlen, L, num_kmers)
-    return ops.candidates(Fkm, Rkm, O, mode, C)
+    return device_ops(plane4.device).candidates_join(
+        plane4, flen, rlen, L, O, num_kmers, mode, C)
 
 
 def assemble_candidates_list_packed4(plane4, flen, rlen, *, L: int,
@@ -603,7 +687,18 @@ def assemble_candidates_list_packed4(plane4, flen, rlen, *, L: int,
 def assemble_candidates_packed4(plane4, flen, rlen, *, L: int,
                                 O: int | None = None, num_kmers: int = 2):
     """Mask form of the same step: [B, O//32] int32 candidate bitmask
-    words (the engine's download when the list form is off)."""
+    words (the engine's download when the list form is off). Under
+    PANDASEQ_TPU_JOIN, a CPU plane at ``num_kmers`` <= 2 takes the sorted
+    join ``cand_mask_join``, as the JAX package's step does; on a card
+    the ``cand_join`` kernel runs either way."""
+    plane4 = torch.as_tensor(plane4)
+    if (num_kmers <= 2 and os.environ.get("PANDASEQ_TPU_JOIN")
+            and plane4.device.type == "cpu"):
+        plane4, _, (flen, rlen), O = _step_inputs(plane4, (flen, rlen), L,
+                                                  O)
+        cf, cr, nonn = _unpack2bit(plane4, L)
+        return cand_mask_join(cf, nonn, cr, nonn, flen, rlen, L, O,
+                              num_kmers)
     return _candidates_packed4(plane4, flen, rlen, L, O, num_kmers,
                                "mask", CAND_LIST_C)
 
@@ -726,9 +821,8 @@ def assemble_candidates_nt(nt_pack, flen, rlen, *, L: int,
     """k-mer candidate search on the nibble-packed plane with the true
     N positions: [B, O//32] int32 candidate bitmask words."""
     nt_pack, _, (flen, rlen), O = _step_inputs(nt_pack, (flen, rlen), L, O)
-    ops = device_ops(nt_pack.device)
-    Fkm, Rkm = ops.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-    return ops.candidates(Fkm, Rkm, O, "mask", CAND_LIST_C)
+    return device_ops(nt_pack.device).candidates_join(
+        nt_pack, flen, rlen, L, O, num_kmers, "mask", CAND_LIST_C, nt=True)
 
 
 def build_ptable(algo) -> np.ndarray:
@@ -737,7 +831,7 @@ def build_ptable(algo) -> np.ndarray:
     reconstruction, assembler.c:162-243: 0 hole, 1 fwd copy, 2 rev
     copy, 3 overlap match, 4 overlap mismatch, 5 both B-cliff masked,
     6 fwd masked, 7 rev masked)."""
-    from pandaseq_tpu.assembler import _match_probability_vec
+    from ..assembler import _match_probability_vec
 
     fqg, rqg = np.meshgrid(np.arange(47), np.arange(47), indexing="ij")
     fqf = fqg.ravel()

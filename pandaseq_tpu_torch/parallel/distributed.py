@@ -6,8 +6,9 @@ stream, the PandaMux analogue, mux.c:132-161), assembles them with the
 port's ``BatchAssembler`` and writes its own part file; the STAT
 counters, the overlap histogram and the per-module rejects are summed
 over all processes at the end. The input sharding, the batch claims and
-the checkpoint are the JAX package's host code, imported (they use no
-JAX).
+the checkpoint (``ShardCheckpoint``, ``shard_inputs``,
+``_claimed_batches``, ``_batches_of``) are the port's copies of the JAX
+module's host code.
 
 The group is torch.distributed over gloo: the counters are host data
 summed once per run, so no card is needed, and gloo works for ranks that
@@ -23,14 +24,12 @@ environment starts it:
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
-
-from pandaseq_tpu.parallel.distributed import (  # noqa: F401
-    ShardCheckpoint, _batches_of, _claimed_batches, shard_inputs)
 
 N_COUNTERS = 8
 HIST_BINS = 1024
@@ -85,6 +84,104 @@ def reduce_counters(counters, histogram: dict, modules=()):
     return vec[:N_COUNTERS], hist
 
 
+class ShardCheckpoint:
+    """Append-only resume watermark per input shard."""
+
+    def __init__(self, path: str | None):
+        self.path = path
+        self.done = {}
+        if path and os.path.exists(path):
+            with open(path) as fh:
+                for line in fh:
+                    rec = json.loads(line)
+                    self.done[rec["shard"]] = rec["batch"]
+
+    def watermark(self, shard: int) -> int:
+        return self.done.get(shard, -1)
+
+    def record(self, shard: int, batch: int):
+        if not self.path:
+            return
+        with open(self.path, "a") as fh:
+            fh.write(json.dumps({"shard": shard, "batch": batch}) + "\n")
+        self.done[shard] = batch
+
+
+def shard_inputs(inputs, process_index: int, process_count: int):
+    """inputs: list of (fwd, rev) path tuples -> this host's subset."""
+    return [pair for i, pair in enumerate(inputs)
+            if i % process_count == process_index]
+
+
+def _claimed_batches(fwd, rev, batch, L, claim, n_claim, start_after,
+                     ring=28):
+    """(batch_index, Batch) for this host's round-robin claims on a
+    shared stream. Unclaimed batches — and claimed batches at or below
+    the resume watermark — are DECODE-SKIPPED via the native
+    psq_skip_batch (line scan + record validation + persistent-qual
+    replay, no row writes), so N hosts sharing one stream pay ~1/N of
+    the full parse cost instead of N full decodes. The reference's mux
+    serializes only the pair hand-off, never the parsing
+    (mux.c:132-161); skip preserves every cross-batch semantic (error
+    position, NODATA counting, stream flags, stale-qual tails), so
+    claimed batches are bit-identical to the decode-everything layout.
+    The ring needs to cover only CLAIMED batches in flight — skipped
+    batches occupy no slots."""
+    try:
+        from ..io import native
+        if native.get_lib() is None:
+            raise RuntimeError
+    except (RuntimeError, OSError):
+        for i, b in enumerate(_batches_of(fwd, rev, batch, L,
+                                          ring=ring)):
+            if i % n_claim == claim and i > start_after:
+                yield i, b
+        return
+    rdr = native.NativeBatchReader(fwd, rev, batch=batch, L=L, ring=ring)
+    i = 0
+    while True:
+        if i % n_claim == claim and i > start_after:
+            try:
+                b = next(rdr)
+            except StopIteration:
+                break
+            yield i, b
+        elif rdr.skip_batch() == 0:
+            break
+        i += 1
+
+
+def _batches_of(fwd, rev, batch, L, ring=28):
+    try:
+        from ..io import native
+        if native.get_lib() is None:
+            raise RuntimeError
+        # ring: prefetch(8) + pipeline depth(6) + dispatch group(4) +
+        # consumer < 28 batches in flight; persistent decode buffers.
+        # CALLERS THAT SKIP BATCHES (mux round-robin claims) must scale
+        # ring by the claim stride: the decoder cycles one slot per
+        # DECODED batch, so n_claim-strided consumption holds each
+        # claimed batch across n_claim slot reuses (a 5M-pair mux run
+        # silently corrupted ~36k records before this was sized right;
+        # the engine now also hard-fails on overrun).
+        yield from native.NativeBatchReader(fwd, rev, batch=batch, L=L,
+                                            ring=ring)
+    except (RuntimeError, OSError):
+        from ..io import fastq as fq
+        reader = fq.read_pairs(fwd, rev)
+        done = False
+        while not done:
+            chunk = []
+            while len(chunk) < batch:
+                try:
+                    chunk.append(next(reader))
+                except (StopIteration, fq.StreamError):
+                    done = True
+                    break
+            if chunk:
+                yield chunk
+
+
 def run_distributed(inputs, cfg=None, out_dir: str = ".",
                     batch: int = 4096, L: int = 512, modules=(),
                     checkpoint: str | None = None, fastq: bool = False,
@@ -106,13 +203,11 @@ def run_distributed(inputs, cfg=None, out_dir: str = ".",
     seconds, pair count and pairs/s."""
     import time as _time
 
-    from pandaseq_tpu import oracle
-    from pandaseq_tpu.io import native as _native
-    from pandaseq_tpu.io import output as out_mod
-    from pandaseq_tpu.io.prefetch import prefetch
-
-    from .. import runtime
+    from .. import oracle, runtime
     from ..assembler import BatchAssembler
+    from ..io import native as _native
+    from ..io import output as out_mod
+    from ..io.prefetch import prefetch
     from .shard import make_mesh
 
     pidx, pcount = maybe_initialize_distributed()

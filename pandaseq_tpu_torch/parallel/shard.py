@@ -13,7 +13,8 @@ over "op"); here the split is written out over a grid of
 * ``op`` cells within a dp row: every cell computes the full k-mer frames
   (their windows cross row blocks) and then its block of overlap-plane
   rows ``[j0, j0+Oj)``, ``Oj = O / op``, through the row-block forms of
-  the kernels (``counts``, ``cand``, ``lut_sums``; ``fused2.device_ops``).
+  the kernels (``counts``, ``cand_join``, ``lut_sums``;
+  ``fused2.device_ops``); ``cand_join`` ranks the whole read itself.
 * the reduction ``psum`` does in JAX: partial int32 counts and partial
   f32 LUT sums are copied to the row's first device and added in op
   order, partial candidate masks are ORed, and the shortlist runs once
@@ -39,10 +40,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pandaseq_tpu.tables import QUAL_NN_SIMPLE_BAYESIAN
-
 from .. import runtime
 from ..ops import fused2
+from ..tables import QUAL_NN_SIMPLE_BAYESIAN
 
 NN = float(QUAL_NN_SIMPLE_BAYESIAN)  # the step's nn, as in the JAX body
 
@@ -214,19 +214,21 @@ def _sharded_body(devs, nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
 
 
 def _sharded_cand_body(devs, nt_pack, flen, rlen, *, L, O, num_kmers,
-                       frames="kmer_frames_nt"):
-    """One dp row of the candidate step: each op cell computes the full
-    k-mer frames and its row block's candidate mask, and the masks OR
+                       nt=True):
+    """One dp row of the candidate step: each op cell runs the candidate
+    search over the whole read (the k-mer windows and the rank cross row
+    blocks) and keeps its row block's candidate mask, and the masks OR
     together on the row's first device (``pack_bits16(psum(candc) !=
-    0)`` of the JAX body)."""
+    0)`` of the JAX body). The row block only filters the bits set: each
+    cell repeats the join's decode, sort and probes, so op > 1 splits no
+    work of this step."""
     flen, rlen = _int32(flen, rlen)
     masks = []
     for dev, j0, Oj in _blocks(devs, O):
-        ops = fused2.device_ops(dev)
         plane, fl, rl = (x.to(dev) for x in (nt_pack, flen, rlen))
-        Fkm, Rkm = getattr(ops, frames)(plane, fl, rl, L, num_kmers)
-        masks.append(ops.candidates(Fkm, Rkm, O, "mask",
-                                    fused2.CAND_LIST_C, j0, Oj))
+        masks.append(fused2.device_ops(dev).candidates_join(
+            plane, fl, rl, L, O, num_kmers, "mask", fused2.CAND_LIST_C, j0,
+            Oj, nt=nt))
     return _reduce(masks, devs[0], operator.or_)
 
 
@@ -235,7 +237,7 @@ def _sharded_cand_body_packed4(devs, plane4, flen, rlen, *, L, O,
     """The candidate step on the 4-bit packed upload (psq_pack4; rows
     with N are recomputed on host, as on one device)."""
     return _sharded_cand_body(devs, plane4, flen, rlen, L=L, O=O,
-                              num_kmers=num_kmers, frames="kmer_frames")
+                              num_kmers=num_kmers, nt=False)
 
 
 def make_sharded_cand_step_packed4(mesh: Mesh, L: int,

@@ -96,6 +96,25 @@ def _best_of(fn, n=PROBE_REPS):
     return min(ts)
 
 
+def _probe_batch(B: int, L: int):
+    """Synthetic reversed-frame Batch of ~250 bp ACGT pairs for the
+    engine probe (deterministic; no N bases, so pack4 flags no rows).
+    The JAX package's ``runtime._probe_batch``."""
+    import numpy as np
+
+    from .assembler import Batch
+    rng = np.random.default_rng(7)
+    codes = np.array([1, 2, 4, 8], dtype=np.int8)  # A C G T one-hot
+    fwd = codes[rng.integers(0, 4, size=(B, L))]
+    rev = codes[rng.integers(0, 4, size=(B, L))]
+    lens = rng.integers(240, 251, size=B).astype(np.int32)
+    pos = np.arange(L)[None, :]
+    fwd[pos >= lens[:, None]] = 0
+    rev[pos >= lens[:, None]] = 0
+    q = np.full((B, L), 30, dtype=np.int8)
+    return Batch([None] * B, fwd, q, rev, q, lens, lens.copy(), None)
+
+
 def _measure(device, L, O, num_kmers, B):
     """(host seconds, device seconds) of one batch's candidate masks:
     the native twin psq_cand_mask against the engine's device side end
@@ -104,11 +123,9 @@ def _measure(device, L, O, num_kmers, B):
     rows, as the engine pays them per batch."""
     import numpy as np
 
-    from pandaseq_tpu.io import native
-    from pandaseq_tpu.oracle import OracleConfig
-    from pandaseq_tpu.runtime import _probe_batch
-
     from .assembler import BatchAssembler
+    from .io import native
+    from .oracle import OracleConfig
 
     batch = _probe_batch(B, L)
     rows = np.arange(B, dtype=np.int64)
@@ -153,7 +170,7 @@ def pick_engine(device, L: int = 256, O: int = 256, num_kmers: int = 2,
     once per environment. Concurrent probes serialise on a flock whose
     wait raises TimeoutError after ``lock_timeout`` seconds. A device
     error inside the probe raises: nothing hides the device."""
-    from pandaseq_tpu.io import native
+    from .io import native
     if native.get_lib() is None:
         return "device", {"reason": "no-native"}
     device = torch.device(device)

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from pandaseq_tpu import oracle
+from pandaseq_tpu import oracle as jax_oracle
 from pandaseq_tpu.assembler import BatchAssembler as JaxAssembler
-from pandaseq_tpu.io import native
+from pandaseq_tpu.io import native as jax_native
+from pandaseq_tpu_torch import oracle
 from pandaseq_tpu_torch.assembler import BatchAssembler, _PendingList
+from pandaseq_tpu_torch.io import native
 from pandaseq_tpu_torch.ops import cand
 from pandaseq_tpu_torch.parallel import shard
 
@@ -28,16 +30,28 @@ ALGORITHMS = ["simple_bayesian", "uparse", "pear", "rdp_mle", "ea_util",
               "flash", "stitch"]
 
 
-def _batches(n, prefix=SYNTH):
+def _batches(n, prefix=SYNTH, reader=native):
     """tests/data/synth_* (or another pair of files) in native-decoder
-    batches of n pairs."""
-    return native.NativeBatchReader(prefix + "_1.fastq",
+    batches of n pairs, decoded by ``reader``: the port's io.native, or
+    the JAX package's for its own engine."""
+    return reader.NativeBatchReader(prefix + "_1.fastq",
                                     prefix + "_2.fastq", batch=n, L=512)
 
 
+def _jax_cfg(cfg):
+    """The JAX package's OracleConfig with the same values as the
+    port's ``cfg`` (each engine gets its own package's objects)."""
+    out = jax_oracle.OracleConfig(
+        **{k: getattr(cfg, k) for k in cfg.__dataclass_fields__
+           if k != "algorithm"})
+    out.algorithm = jax_oracle.make_algorithm(cfg.algorithm.name, None)
+    return out
+
+
 def _emit(asm, n=64, group=1, fmt="fasta", prefix=SYNTH):
+    reader = native if isinstance(asm, BatchAssembler) else jax_native
     payload = b"".join(p for _, _, p in asm.emit_stream(
-        _batches(n, prefix), fmt=fmt, depth=2, threaded=True,
+        _batches(n, prefix, reader), fmt=fmt, depth=2, threaded=True,
         group=group))
     c = asm.counters
     return payload, (c.count, c.ok, c.lowq, c.noalgn, c.badread, c.slow,
@@ -55,7 +69,7 @@ def _device_engine(monkeypatch):
 def test_engine_equals_jax_engine(name):
     cfg = oracle.OracleConfig()
     cfg.algorithm = oracle.make_algorithm(name, None)
-    want = _emit(JaxAssembler(cfg))
+    want = _emit(JaxAssembler(_jax_cfg(cfg)))
     cand.reset_launch_counts()
     asm = BatchAssembler(cfg, device="cpu")
     assert asm.engine == "cpu"
@@ -64,7 +78,8 @@ def test_engine_equals_jax_engine(name):
     # plain twins on the CPU: no kernel launched
     assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)
     np.testing.assert_array_equal(asm._ptbl.view(np.uint64),
-                                  JaxAssembler(cfg)._ptbl.view(np.uint64))
+                                  JaxAssembler(_jax_cfg(cfg))._ptbl.view(
+                                      np.uint64))
 
 
 def test_grouped_dispatch_and_mask_form_equal_jax(monkeypatch):
@@ -103,16 +118,16 @@ def test_host_engine_pin_and_k0(monkeypatch):
     assert st["plane_kind"] == 0
     assert lst.dtype == np.int32 and lst.shape == (16, 2 * asm.SL + 4)
     assert _emit(BatchAssembler(cfg, device="cpu")) == _emit(
-        JaxAssembler(cfg))
+        JaxAssembler(_jax_cfg(cfg)))
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
     asm = BatchAssembler(cfg, device="cpu")
     assert asm.engine == "host"
-    assert _emit(asm) == _emit(JaxAssembler(cfg))
+    assert _emit(asm) == _emit(JaxAssembler(_jax_cfg(cfg)))
     monkeypatch.delenv("PANDASEQ_TPU_ENGINE")
     mesh = shard.make_mesh(devices=["cpu"] * 8, op=2)
     asm = BatchAssembler(cfg, device="cpu", mesh=mesh)
     assert asm.mesh is mesh and asm.engine == "cpu"
-    assert _emit(asm) == _emit(JaxAssembler(cfg))
+    assert _emit(asm) == _emit(JaxAssembler(_jax_cfg(cfg)))
 
 
 @pytest.mark.parametrize("name", ["simple_bayesian", "uparse", "ea_util",
@@ -122,7 +137,7 @@ def test_engine_k0_equals_jax_engine(name):
     cfg = oracle.OracleConfig()
     cfg.algorithm = oracle.make_algorithm(name, None)
     cfg.num_kmers = 0
-    want = _emit(JaxAssembler(cfg))
+    want = _emit(JaxAssembler(_jax_cfg(cfg)))
     cand.reset_launch_counts()
     got = _emit(BatchAssembler(cfg, device="cpu"))
     assert want[0] and got == want
@@ -136,10 +151,14 @@ def test_custom_algorithm_equals_jax_engine():
     class Mimic(oracle.SimpleBayes):
         name = "mimic_sb"
 
+    class JaxMimic(jax_oracle.SimpleBayes):
+        name = "mimic_sb"
+
     cfg = oracle.OracleConfig(algorithm=Mimic())
     asm = BatchAssembler(cfg, device="cpu")
     assert asm._custom
-    want = _emit(JaxAssembler(cfg))
+    want = _emit(JaxAssembler(
+        jax_oracle.OracleConfig(algorithm=JaxMimic())))
     assert want[0] and _emit(asm) == want
 
 
@@ -159,6 +178,6 @@ def test_overflow_reroute_equals_jax(tmp_path, name):
                    check=True, stdout=subprocess.DEVNULL)
     cfg = oracle.OracleConfig(minoverlap=4, maxoverlap=850)
     cfg.algorithm = oracle.make_algorithm(name, None)
-    want = _emit(JaxAssembler(cfg), prefix=prefix)
+    want = _emit(JaxAssembler(_jax_cfg(cfg)), prefix=prefix)
     got = _emit(BatchAssembler(cfg, device="cpu"), prefix=prefix)
     assert want[0] and got == want

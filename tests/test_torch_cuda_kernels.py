@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card: equal to their plain PyTorch
-twins and to native.cand_mask (the exact host twin), over the full plane
+versions and to native.cand_mask (the exact host twin): the sort-join
+``cand_join`` on the packed and the nibble plane, at num_kmers 0-3, in
+list and mask form and over row blocks, and the other kernels, over the
+full plane
 and over the row blocks of the op-sharded steps (the LUT sums of pear /
 rdp_mle bit for bit too), and the engine on the card equal to the engine
 on the CPU, on the sparse path and the dense -k 0 path, on one device
@@ -20,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from pandaseq_tpu.io import native
+from pandaseq_tpu_torch import oracle
 from pandaseq_tpu_torch.assembler import BatchAssembler
+from pandaseq_tpu_torch.io import native
 from pandaseq_tpu_torch.ops import cand, dense, fused2
 
 pytestmark = pytest.mark.cuda
@@ -54,17 +58,35 @@ def _batch(n=200):
     return b
 
 
-def _check(dev, plane, flen, rlen, Lb, O, k):
-    """Both kernels against their twins on the card; returns the mask."""
+def _check(dev, plane, flen, rlen, Lb, O, k, nt=False):
+    """cand_join against its plain version on the card, in list and mask
+    form, over the full plane and the row blocks of op 2 and 4 (whose
+    masks OR to the full plane's); on the packed plane also the old
+    kmer_frames + cand pair against theirs. Returns the full mask."""
     plane = torch.from_numpy(plane).to(dev)
     flen = torch.from_numpy(np.ascontiguousarray(flen, np.int32)).to(dev)
     rlen = torch.from_numpy(np.ascontiguousarray(rlen, np.int32)).to(dev)
-    Fk, Rk = cand.kmer_frames(plane, flen, rlen, Lb, k)
-    Fp, Rp = fused2.plain_kmer_frames(plane, flen, rlen, Lb, k)
-    assert torch.equal(Fk, Fp) and torch.equal(Rk, Rp)
+    args = (plane, flen, rlen, Lb, O, k)
     for mode in ("list", "mask"):
-        got = cand.candidates(Fk, Rk, O, mode, C)
-        assert torch.equal(got, fused2.plain_candidates(Fp, Rp, O, mode, C))
+        got = cand.candidates_join(*args, mode, C, nt=nt)
+        assert torch.equal(got, fused2.plain_candidates_join(
+            *args, mode, C, nt=nt)), (mode, nt)
+    for op in (2, 4):
+        Oj = O // op
+        acc = torch.zeros_like(got)
+        for j0 in range(0, O, Oj):
+            m = cand.candidates_join(*args, "mask", C, j0, Oj, nt=nt)
+            assert torch.equal(m, fused2.plain_candidates_join(
+                *args, "mask", C, j0, Oj, nt=nt)), (op, j0, nt)
+            acc |= m
+        assert torch.equal(acc, got)
+    if not nt:
+        Fk, Rk = cand.kmer_frames(plane, flen, rlen, Lb, k)
+        Fp, Rp = fused2.plain_kmer_frames(plane, flen, rlen, Lb, k)
+        assert torch.equal(Fk, Fp) and torch.equal(Rk, Rp)
+        for mode in ("list", "mask"):
+            assert torch.equal(cand.candidates(Fk, Rk, O, mode, C),
+                               fused2.plain_candidates(Fp, Rp, O, mode, C))
     torch.cuda.synchronize()
     return got.cpu().numpy()
 
@@ -93,9 +115,29 @@ def test_kernels_equal_twins_random_planes(dev):
         _check(dev, plane, flen, rlen, L, L, k)
 
 
+@pytest.mark.parametrize("Lb,O", [(96, 64), (256, 256), (384, 320),
+                                  (512, 512)])
+def test_cand_join_nt_equals_plain(dev, Lb, O):
+    """cand_join on the nibble plane (N runs, degenerate codes, pads,
+    poly-C rows) against its plain version at num_kmers 0-3; and on the
+    synth reads with N against native.cand_mask."""
+    rng = np.random.default_rng(Lb + O)
+    nt, flen, rlen = _nt_planes(rng, 256, Lb)
+    for k in (0, 1, 2, 3):
+        _check(dev, nt, flen, rlen, Lb, O, k, nt=True)
+    if Lb >= 256:
+        b = _batch()
+        nt = np.ascontiguousarray(b.nt_packed()[:, :Lb])
+        rows = np.arange(len(b.sids), dtype=np.int64)
+        for k in (1, 2, 3):
+            mask = _check(dev, nt, b.flen, b.rlen, Lb, O, k, nt=True)
+            np.testing.assert_array_equal(mask,
+                                          native.cand_mask(b, rows, k, O))
+
+
 def test_engine_on_card_equals_cpu(dev, monkeypatch):
     """200 synth pairs in 4 batches of one shape bucket: one launch of
-    each kernel per dispatch (4 ungrouped, 2 in groups of 3)."""
+    cand_join per dispatch (4 ungrouped, 2 in groups of 3)."""
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     out = {}
     for device, group, launches in (("cpu", 1, 0), ("cuda", 1, 4),
@@ -109,8 +151,7 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
             p for _, _, p in asm.emit_stream(reader, depth=2,
                                              threaded=True, group=group))
         assert cand.launch_counts() == dict(
-            dict.fromkeys(cand.KERNELS, 0), kmer_frames=launches,
-            cand=launches)
+            dict.fromkeys(cand.KERNELS, 0), cand_join=launches)
     assert out["cpu", 1] and len(set(out.values())) == 1
 
 
@@ -181,7 +222,6 @@ def test_candidates_nt_equal_host_mask(dev, k):
 def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
     """-k 0: the dense kernels, once each per dispatch, give the bytes
     of the plain twins."""
-    from pandaseq_tpu import oracle
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     cfg = oracle.OracleConfig()
     cfg.algorithm = oracle.make_algorithm(name, None)
@@ -207,7 +247,7 @@ def _lut_inputs(dev, rng, B, L):
     tails, and pear's and rdp_mle's tables on the card."""
     import math
 
-    from pandaseq_tpu import tables
+    from pandaseq_tpu_torch import tables
     nt, flen, rlen = _nt_planes(rng, B, L)
     fq = rng.integers(-3, 50, (B, L)).astype(np.int8)
     rq = rng.integers(-3, 50, (B, L)).astype(np.int8)
@@ -271,9 +311,9 @@ def test_lut_sums_equal_twin(dev, Lb, O):
 
 @pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 384)])
 def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
-    """counts and cand over the row blocks of op 2 and 4: each block
-    equals its twin, the blocks' counts add up to the full-plane
-    kernel's and their masks OR to its mask, exactly."""
+    """counts, cand and cand_join (nibble plane) over the row blocks of
+    op 2 and 4: each block equals its twin, the blocks' counts add up to
+    the full-plane kernel's and their masks OR to its mask, exactly."""
     rng = np.random.default_rng(O)
     nt, flen, rlen = _nt_planes(rng, 256, Lb)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -281,6 +321,8 @@ def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
     Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, 2)
     full = dense.counts(nt, Fk, Rk, O)
     full_mask = cand.candidates(Fk, Rk, O, "mask", C)
+    assert torch.equal(full_mask, cand.candidates_join(
+        nt, flen, rlen, Lb, O, 2, "mask", C, nt=True))
     for op in (2, 4):
         Oj = O // op
         sums = [torch.zeros_like(x) for x in full]
@@ -294,6 +336,8 @@ def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
             m = cand.candidates(Fk, Rk, O, "mask", C, j0, Oj)
             assert torch.equal(m, fused2.plain_candidates(
                 Fk, Rk, O, "mask", C, j0, Oj))
+            assert torch.equal(m, cand.candidates_join(
+                nt, flen, rlen, Lb, O, 2, "mask", C, j0, Oj, nt=True))
             mask |= m
         for s, f in zip(sums, full):
             assert torch.equal(s, f)
@@ -304,10 +348,9 @@ def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
 @pytest.mark.parametrize("num_kmers", [2, 0])
 def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
     """A (dp=2, op=2) mesh on one card through the engine gives the CPU
-    engine's bytes; each 64-pair batch splits, so each launches the
-    frames and cand / counts once per mesh cell (4) and the shortlist
-    once per dp row (2); the last batch of 8 splits too."""
-    from pandaseq_tpu import oracle
+    engine's bytes; each 64-pair batch splits, so each launches
+    cand_join, or the frames and counts, once per mesh cell (4) and the
+    shortlist once per dp row (2); the last batch of 8 splits too."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     cfg = oracle.OracleConfig(num_kmers=num_kmers)
@@ -323,7 +366,7 @@ def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
             p for _, _, p in asm.emit_stream(reader, depth=2,
                                              threaded=True))
         if device == "cuda":
-            path = (("kmer_frames", "cand") if num_kmers
+            path = (("cand_join",) if num_kmers
                     else ("kmer_frames_nt", "counts", "shortlist"))
             want = dict.fromkeys(cand.KERNELS, 0)
             for name in path:
@@ -337,7 +380,7 @@ def test_engine_on_named_card_and_across_cards(dev, monkeypatch):
     cuda:0 stays the current device: every kernel launches on the
     tensors' card. With several cards, meshes across them too (all on dp,
     and dp x op=2 when the count is even). All give the CPU engine's
-    bytes; each launches the sparse kernels."""
+    bytes; each launches the sparse path's cand_join."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     n = torch.cuda.device_count()
@@ -359,5 +402,5 @@ def test_engine_on_named_card_and_across_cards(dev, monkeypatch):
                 reader, depth=2, threaded=True))
             assert torch.cuda.current_device() == 0
             launched = cand.launch_counts()
-            assert (launched["kmer_frames"] > 0) == (name != "cpu"), name
+            assert (launched["cand_join"] > 0) == (name != "cpu"), name
     assert out["cpu"] and len(set(out.values())) == 1, sorted(out)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from pandaseq_tpu.assembler import Counters
+from pandaseq_tpu_torch.assembler import Counters
 from pandaseq_tpu_torch.parallel import distributed as D
 
 torch.set_num_threads(1)

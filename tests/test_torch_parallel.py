@@ -17,18 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from pandaseq_tpu import oracle
 from pandaseq_tpu.assembler import BatchAssembler as JaxAssembler
-from pandaseq_tpu.assembler import make_batch
-from pandaseq_tpu.io import fastq as fq
-from pandaseq_tpu.io import output as out_mod
 from pandaseq_tpu.ops import fused2 as jf
-from pandaseq_tpu_torch.assembler import BatchAssembler
+from pandaseq_tpu_torch import oracle
+from pandaseq_tpu_torch.assembler import BatchAssembler, make_batch
+from pandaseq_tpu_torch.io import fastq as fq
+from pandaseq_tpu_torch.io import output as out_mod
 from pandaseq_tpu_torch.ops import cand
 from pandaseq_tpu_torch.ops import fused2 as tf
 from pandaseq_tpu_torch.parallel import shard
 from tests.test_parallel import _example_rev, _pack
-from tests.test_torch_assembler import SYNTH, _emit
+from tests.test_torch_assembler import SYNTH, _emit, _jax_cfg
 from tests.test_torch_dense import _check_shortlist
 from tests.test_torch_lut import LUTS
 
@@ -93,7 +92,7 @@ def test_sharded_candidate_steps_match_single_device(op):
     """The candidate steps on the nibble plane and on the 4-bit packed
     upload: row-block masks ORed over op equal the JAX package's
     single-device masks."""
-    from pandaseq_tpu.io.native import pack4
+    from pandaseq_tpu_torch.io.native import pack4
 
     L, B = 128, 32
     nt, _, _, flen, rlen, _, _ = _args(B, L, 5)
@@ -124,7 +123,7 @@ def test_assembler_op_mesh_bit_identical(algo, num_kmers):
     batches of 64: every batch splits over dp=4."""
     cfg = oracle.OracleConfig(algorithm=oracle.make_algorithm(algo),
                               num_kmers=num_kmers)
-    want = _emit(JaxAssembler(cfg))
+    want = _emit(JaxAssembler(_jax_cfg(cfg)))
     cand.reset_launch_counts()
     mesh = shard.make_mesh(devices=CPU8, op=2)
     asm = BatchAssembler(cfg, device="cpu", mesh=mesh)
@@ -155,7 +154,7 @@ def test_unsplit_batch_runs_whole_and_equal():
     for k in (2, 0):
         cfg = oracle.OracleConfig(num_kmers=k)
         got = _emit(BatchAssembler(cfg, device="cpu", mesh=mesh), n=66)
-        assert got == _emit(JaxAssembler(cfg), n=66)
+        assert got == _emit(JaxAssembler(_jax_cfg(cfg)), n=66)
 
 
 def test_shard_fused_batch_equals_single_device():

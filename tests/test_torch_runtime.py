@@ -12,7 +12,7 @@ import os
 import pytest
 import torch
 
-from pandaseq_tpu.io import native
+from pandaseq_tpu_torch.io import native
 from pandaseq_tpu_torch import runtime
 from pandaseq_tpu_torch.assembler import BatchAssembler
 
