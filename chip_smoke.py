@@ -24,21 +24,23 @@ phase is caught.
      tests/golden/make_data.py --fast (through make_batch and psq_pack4),
      on generated reads with N, and on random planes with low-entropy
      rows; the bitmasks also against native.cand_mask, the exact host
-     twin. It is timed (list, num_kmers 2) in turns with the two kernels
-     it replaced on the main path, kmer_frames + cand, and held to at
-     most half their summed time;
-   - kmer_frames and cand (no engine path runs them any more), exactly,
-     at num_kmers in {1, 2, 3}, on the same packed planes;
-   - the dense path's kmer_frames_nt and counts exactly, and shortlist
-     exactly or within SHORTLIST_ULPS on its f32 columns, at num_kmers
-     in {0, 1, 2, 3} and each of the four score kinds, on generated
-     reads with N bases and B-cliffs (make_data.py without --fast) and
-     on random nibble planes with N runs and low-entropy rows;
-     assemble_candidates_nt on the card against native.cand_mask at
-     num_kmers in {1, 2, 3};
-   - the row blocks of the op-sharded steps: counts and cand over the
-     row blocks of op 2 and 4 against their twins, and summed (counts) or
-     ORed (cand masks) against the full-plane kernel, exactly;
+     twin;
+   - the dense path's counts (the k-mer frames fused in) exactly, at
+     num_kmers in {0, 1, 2, 3}, over the full plane and the row blocks of
+     op 2 and 4 (summed against the full plane), its k-mer hits against
+     cand_join's mask; shortlist exactly or within SHORTLIST_ULPS on its
+     f32 columns for each of the four count kinds; on generated reads
+     with N bases and B-cliffs (make_data.py without --fast) and on
+     random nibble planes with N runs and low-entropy rows; the
+     shortlist of every score kind also on the edge rows of
+     tests/shortlist_rows.py; assemble_candidates_nt on the card against
+     native.cand_mask at num_kmers in {1, 2, 3};
+   - counts (num_kmers 0 and 2) and shortlist timed beside the recorded
+     times of the kernels they replaced (REPLACED_MS) on the card those
+     were taken on
+     (REFERENCE_CARD): the script exits nonzero if counts at num_kmers 0
+     or shortlist takes more than MAX_RATIO of them at any width; on
+     another card it prints "not compared";
    - lut_sums (the pear / rdp_mle LUT sums) against its twin bit for bit
      (0 ulp), over the full plane and the row blocks of op 2 and 4, on
      the generated reads with N (their own qual planes, stale tails
@@ -49,7 +51,8 @@ phase is caught.
    PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
    byte-identical and non-empty, the STAT/log line sequence equal, and
    every kernel of the run's path launched once per dispatched batch and
-   every other kernel never (the defaults: cand_join alone):
+   every other kernel never (the defaults: cand_join alone; -k 0: counts
+   and shortlist):
    - the defaults (simple_bayesian, -k 2) on 500,000 generated 2x250
      pairs, in turns cuda, host, host, cuda; again on the 200-pair
      stream with N bases and B-cliffs (the host fix-up path);
@@ -67,9 +70,9 @@ phase is caught.
    (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
    phase 3, STAT counters equal to the host engine's through the same
    emit_stream loop (which, with the single-device cuda engine, is also
-   timed there), and the launches the split implies (cand_join, or the
-   frames and counts, once per mesh cell of a split batch, shortlist once
-   per dp row, an unsplit batch once). Then the pear / rdp_mle library path:
+   timed there), and the launches the split implies (cand_join, or
+   counts, once per mesh cell of a split batch, shortlist once per dp
+   row, an unsplit batch once). Then the pear / rdp_mle library path:
    make_sharded_step on the (2, 2) mesh at B=8192, Lb=O=256 against the
    single-device assemble_shortlist: examined equal, and the shortlist
    sets equal on every row whose SL-th and SL+1-th scores are apart by
@@ -108,25 +111,27 @@ SHAPES = (256, 384, 512)  # Lb = O
 READ_SPEC = {256: ("250", "300", "460"), 384: ("380", "400", "700"),
              512: ("450", "500", "850")}  # read length, amplicon range
 SPARSE = ("cand_join",)  # the main path
-OLD_SPARSE = ("kmer_frames", "cand")  # the unfused pair that cand_join replaces
-DENSE = ("kmer_frames_nt", "counts", "shortlist")
+DENSE = ("counts", "shortlist")  # -k 0 and custom algorithms
 LUT = DENSE + ("lut_sums",)  # the pear / rdp_mle library path
-KERNELS = SPARSE + OLD_SPARSE + LUT
+KERNELS = SPARSE + LUT
 REPLACES = {"cand_join": "pandaseq_tpu/ops/pallas_cand.py:117",
-            "kmer_frames": "pandaseq_tpu/ops/fused2.py:119",
-            "cand": "pandaseq_tpu/ops/pallas_cand.py:117",
-            "kmer_frames_nt": "pandaseq_tpu/ops/fused2.py:108",
             "counts": "pandaseq_tpu/ops/fused2.py:190",
             "shortlist": "pandaseq_tpu/ops/fused2.py:267",
             "lut_sums": "pandaseq_tpu/ops/fused2.py:218"}
 SOURCES = {"cand_join": "pandaseq_tpu_torch/csrc/cand_join.cu",
-           "kmer_frames": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
-           "cand": "pandaseq_tpu_torch/csrc/cand.cu",
-           "kmer_frames_nt": "pandaseq_tpu_torch/csrc/kmer_frames.cu",
            "counts": "pandaseq_tpu_torch/csrc/counts.cu",
            "shortlist": "pandaseq_tpu_torch/csrc/shortlist.cu",
            "lut_sums": "pandaseq_tpu_torch/csrc/lut_sums.cu"}
 OPS = (2, 4)  # op widths of the row-block checks
+# the recorded CUDA-event times (ms) of the kernels that counts
+# (num_kmers 0: a per-cell counts kernel) and shortlist (one block per
+# pair) replaced, at B=8192 and Lb=O, on REFERENCE_CARD (PERF.md, kernel
+# table); each new kernel takes at most MAX_RATIO of them there
+REPLACED_MS = {("counts", 256): 0.2102, ("counts", 384): 0.4467,
+          ("counts", 512): 0.7617, ("shortlist", 256): 0.1105,
+          ("shortlist", 384): 0.1213, ("shortlist", 512): 0.1312}
+REFERENCE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+MAX_RATIO = 0.5
 LUT_ALGOS = ("pear", "rdp_mle")
 MESHES = ((2, 2), (2, 1))  # (dp, op) of the mesh runs, all on cuda:0
 # the dense kernel is held to its twin on the f32 score columns within
@@ -152,21 +157,24 @@ HOLD_CYCLES = 20_000_000
 # where it is timed. Bytes: each input read once and each output written
 # once. Operations: what the function needs on these inputs, whatever
 # the kernel's design:
-# - cand_join and cand (one function): one per emitted forward and per
-#   emitted reverse k-mer, and one per candidate found; a join need not
-#   sort, nor compare every cell;
-# - kmer_frames(_nt): one per frame element written;
+# - cand_join: one per emitted forward and per emitted reverse k-mer,
+#   and one per candidate found; a join need not sort, nor compare every
+#   cell;
 # - counts: 3 per 32 live cells (j, i), j + i < O (a 32-bit word holds
-#   32 cells of a bit-parallel compare);
+#   32 cells of a bit-parallel compare), and at num_kmers > 0 the
+#   candidate search's (as cand_join, one per k-mer hit);
 # - lut_sums: one f32 add per term after the first of each diagonal;
 # - shortlist: one f32 score and one compare per offset.
 WORK = {}
 # {(kernel, Lb): operations of the kernel's own design}, a diagnostic
 # beside the bound: cand_join 2 per compare-exchange of its bitonic sort
 # over the next power of two >= Lb plus log2 of that per reverse
-# emission (its binary search); cand one compare per live cell of each
-# emitted reverse position; counts 3 per live cell
+# emission (its binary search); counts COUNTS_WORD_OPS per 32-cell word
+# it walks, plus cand_join's sort and searches at num_kmers > 0;
+# shortlist ~10 per offset for its score, and per lane and round of the
+# top SL one compare per slot and 5 shuffle steps of 3
 DESIGN_OPS = {}
+COUNTS_WORD_OPS = 22  # 6 funnel shifts, 14 logic operations, 2 popcounts
 
 
 def say(*a):
@@ -269,17 +277,47 @@ def bound(name, Lb):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def say_times(times, names, Lb, k):
+# what each timed call runs, beside its time
+TIMED_AS = {"cand_join": "num_kmers 2, list", "counts": "num_kmers 0",
+            "counts k=2": "num_kmers 2",
+            "counts rows": "num_kmers 0, rows [0, O/2)",
+            "shortlist": "counts kind",
+            "lut_sums": "pear"}
+
+
+def say_times(times, names, Lb):
     for name in names:
         ms, pms = times[(name, Lb)]
         bms, by = bound(name, Lb)
         design = DESIGN_OPS.get((name, Lb))
-        say("time %s B=%d Lb=O=%d k=%d: kernel %.4f ms, plain %.4f ms, "
+        say("time %s (%s) B=%d Lb=O=%d: kernel %.4f ms, plain %.4f ms, "
             "bound %.5f ms (%s: %d B, %d int32 + %d f32 ops needed%s), "
             "kernel at %.2f%% of the bound (CUDA events)"
-            % (name, B, Lb, k, ms, pms, bms, by, *WORK[(name, Lb)],
+            % (name, TIMED_AS[name], B, Lb, ms, pms, bms, by,
+               *WORK[(name, Lb)],
                "" if design is None else "; design ops %d" % design,
                100 * bms / ms))
+
+
+def against_replaced(times, Lb, card):
+    """counts (num_kmers 0) and shortlist against the replaced kernels'
+    times on REFERENCE_CARD: exits if either takes more than MAX_RATIO
+    of it; on another card prints "not compared"."""
+    for name in DENSE:
+        ms = times[(name, Lb)][0]
+        old = REPLACED_MS[(name, Lb)]
+        if card != REFERENCE_CARD:
+            say("%s Lb=O=%d: %.4f ms; the replaced kernel's %.4f ms was "
+                "taken on %s, this card is %s: not compared"
+                % (name, Lb, ms, old, REFERENCE_CARD, card))
+            continue
+        say("%s Lb=O=%d: %.4f ms against the replaced kernel's %.4f ms on "
+            "%s: ratio %.3f (limit %.1f)"
+            % (name, Lb, ms, old, card, ms / old, MAX_RATIO))
+        if ms > MAX_RATIO * old:
+            raise SystemExit("%s at Lb=O=%d takes %.4f ms, more than %.1f of "
+                             "the replaced kernel's %.4f ms"
+                             % (name, Lb, ms, MAX_RATIO, old))
 
 
 def row_blocks(O, op):
@@ -287,40 +325,15 @@ def row_blocks(O, op):
     return [(j0, Oj) for j0 in range(0, O, Oj)]
 
 
-def cand_blocks(Fk, Rk, O, what, errs, times=None):
-    """cand's mask over the row blocks of op 2 and 4 against the twin,
-    and ORed against the full-plane kernel, exactly; with ``times``, the
-    CUDA-event times of the block [0, O/2) and its twin."""
-    import torch
-
-    from pandaseq_tpu_torch.ops import cand, fused2
-    full = cand.candidates(Fk, Rk, O, "mask", C)
-    for op in OPS:
-        acc = torch.zeros_like(full)
-        for j0, Oj in row_blocks(O, op):
-            got = cand.candidates(Fk, Rk, O, "mask", C, j0, Oj)
-            errs["cand"] = max(errs["cand"], exact(
-                got, fused2.plain_candidates(Fk, Rk, O, "mask", C, j0, Oj),
-                "%s cand rows [%d, %d)" % (what, j0, j0 + Oj)))
-            acc |= got
-        exact(acc, full, "%s cand op=%d OR vs the full plane" % (what, op))
-    if times is not None:
-        times[("cand", "rows", O)] = ms, pms = paired_ms(
-            lambda: fused2.plain_candidates(Fk, Rk, O, "mask", C, 0, O // 2),
-            lambda: cand.candidates(Fk, Rk, O, "mask", C, 0, O // 2))
-        say("time cand rows [0, %d) B=%d O=%d: kernel %.4f ms, plain %.4f "
-            "ms (CUDA events)" % (O // 2, B, O, ms, pms))
+def live_cells(O):
+    """Cells (j, i), j + i < O, of the plane, summed over the pairs."""
+    return B * O * (O + 1) // 2
 
 
-def live_cells(O, rows=None):
-    """Cells (j, i), j + i < O, of the plane per pair: every row i < O
-    (``rows`` None) or the rows where ``rows`` [B, >= O] is emitted
-    (>= 0), summed over the pairs."""
-    import torch
-    if rows is None:
-        return B * O * (O + 1) // 2
-    width = torch.arange(O, 0, -1, device=rows.device)
-    return int(((rows[:, :O] >= 0) * width).sum())
+def counts_words(O):
+    """32-cell words the counts kernel walks over the pairs: diagonal t
+    spans words 0 .. t // 32."""
+    return B * sum(t // 32 + 1 for t in range(O))
 
 
 def emitted(lens, L):
@@ -377,9 +390,8 @@ def join_check(plane, fl, rl, Lb, k, nt, what, errs):
 
 
 def sparse_kernels(Lb, batch, rng, errs, times):
-    """cand_join (packed plane), kmer_frames and cand against their
-    twins (and native.cand_mask) on generated reads and random planes;
-    cand_join timed in turns with kmer_frames + cand."""
+    """cand_join (packed plane) against its twin (and native.cand_mask)
+    on generated reads and random planes; timed on the reads."""
     import numpy as np
     import torch
 
@@ -420,34 +432,7 @@ def sparse_kernels(Lb, batch, rng, errs, times):
                 % (what, " == native.cand_mask" if tag == "reads" and k
                    else "", "/".join(map(str, OPS)),
                    int((lst[:, 0] > 0).sum()), over, C))
-            if not k:
-                continue
-            Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, k)
-            Fp, Rp = fused2.plain_kmer_frames(plane, fl, rlen, Lb, k)
-            errs["kmer_frames"] = max(
-                errs["kmer_frames"], exact(Fk, Fp, what + " Fkm"),
-                exact(Rk, Rp, what + " Rkm"))
-            for mode in ("list", "mask"):
-                got = cand.candidates(Fk, Rk, O, mode, C)
-                errs["cand"] = max(errs["cand"], exact(
-                    got, fused2.plain_candidates(Fp, Rp, O, mode, C),
-                    "%s %s" % (what, mode)))
-                exact(got, mask if mode == "mask" else lst,
-                      "%s cand %s vs cand_join" % (what, mode))
-            if k == 2:
-                cand_blocks(Fk, Rk, O, what, errs,
-                            times if tag == "reads" else None)
-            say("%s: kmer_frames, cand == plain == cand_join%s"
-                % (what, "; cand row blocks of op %s == plain, OR == full"
-                   % "/".join(map(str, OPS)) if k == 2 else ""))
         if tag == "reads":
-            Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
-            times[("kmer_frames", Lb)] = paired_ms(
-                lambda: fused2.plain_kmer_frames(plane, fl, rlen, Lb, 2),
-                lambda: cand.kmer_frames(plane, fl, rlen, Lb, 2))
-            times[("cand", Lb)] = paired_ms(
-                lambda: fused2.plain_candidates(Fk, Rk, O, "list", C),
-                lambda: cand.candidates(Fk, Rk, O, "list", C))
             times[("cand_join", Lb)] = paired_ms(
                 lambda: fused2.plain_candidates_join(plane, fl, rlen, Lb, O,
                                                      2, "list", C),
@@ -458,40 +443,7 @@ def sparse_kernels(Lb, batch, rng, errs, times):
             WORK[("cand_join", Lb)] = (B * (Lb // 2 + 8 + 2 * (C + 2)),
                                        need, 0)
             DESIGN_OPS[("cand_join", Lb)] = join_ops(Lb, rlen, O)
-            WORK[("kmer_frames", Lb)] = (B * (Lb // 2 + 8 + 8 * Lb),
-                                         2 * B * Lb, 0)
-            WORK[("cand", Lb)] = (B * (8 * Lb + 2 * (C + 2)), need, 0)
-            DESIGN_OPS[("cand", Lb)] = live_cells(O, Rk)
-            say_times(times, SPARSE + OLD_SPARSE, Lb, 2)
-            join_vs_pair(plane, fl, rlen, Lb, times)
-
-
-def join_vs_pair(plane, fl, rlen, Lb, times):
-    """cand_join against the two kernels it replaced on the main path,
-    kmer_frames + cand (list, num_kmers 2), CUDA events in turns pair,
-    join, join, pair; exits unless the join takes at most half the
-    pair's time."""
-    from pandaseq_tpu_torch.ops import cand
-
-    def pair():
-        Fk, Rk = cand.kmer_frames(plane, fl, rlen, Lb, 2)
-        return cand.candidates(Fk, Rk, Lb, "list", C)
-
-    def join():
-        return cand.candidates_join(plane, fl, rlen, Lb, Lb, 2, "list", C)
-
-    p1 = cuda_ms(pair, 20)
-    j1 = cuda_ms(join, 20)
-    j2 = cuda_ms(join, 20)
-    p2 = cuda_ms(pair, 20)
-    j, p = (j1 + j2) / 2, (p1 + p2) / 2
-    times[("join_vs_pair", Lb)] = (j, p)
-    say("time B=%d Lb=O=%d k=2 list, in turns: cand_join %.4f ms, "
-        "kmer_frames + cand %.4f ms, ratio %.3f (CUDA events)"
-        % (B, Lb, j, p, j / p))
-    if j > p / 2:
-        raise SystemExit("cand_join at Lb=%d takes %.4f ms, more than half "
-                         "of kmer_frames + cand's %.4f ms" % (Lb, j, p))
+            say_times(times, SPARSE, Lb)
 
 
 def _score_params():
@@ -528,9 +480,12 @@ def _nt_random(rng, Lb):
     return (fwd | (rev << 4)).view(np.int8), flen, rlen
 
 
-def dense_kernels(Lb, batch, rng, params, errs, times):
-    """kmer_frames_nt, counts and shortlist against their twins, and
-    assemble_candidates_nt against native.cand_mask."""
+def dense_kernels(Lb, batch, rng, params, errs, times, card):
+    """counts (full plane and row blocks) and shortlist against their
+    twins, counts' k-mer hits against cand_join's mask, and
+    assemble_candidates_nt against native.cand_mask; counts and
+    shortlist timed on the reads and held to the replaced kernels'
+    times."""
     import numpy as np
     import torch
 
@@ -553,23 +508,15 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
         nt, fl, rl, fo, ro = map(t, (nt_np, fl_np, rl_np, fo_np, ro_np))
         for k in (0, 1, 2, 3):
             what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
-            Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, k)
-            Fp, Rp = fused2.plain_kmer_frames_nt(nt, fl, rl, Lb, k)
-            errs["kmer_frames_nt"] = max(
-                errs["kmer_frames_nt"], exact(Fk, Fp, what + " Fkm"),
-                exact(Rk, Rp, what + " Rkm"))
-            got = dense.counts(nt, Fk, Rk, O)
-            want = fused2.plain_counts(nt, Fp, Rp, O)
+            got = dense.counts(nt, fl, rl, Lb, O, k)
+            want = fused2.plain_counts(nt, fl, rl, Lb, O, k)
             for g, w, name in zip(got, want, ("m", "unk", "candc")):
                 errs["counts"] = max(errs["counts"],
                                      exact(g, w, "%s %s" % (what, name)))
-            if k == 2:
-                counts_blocks(nt, Fk, Rk, O, got, what, errs,
-                              times if tag == "reads" else None)
-                cand_blocks(Fk, Rk, O, what + " nt", errs)
+            counts_blocks(nt, fl, rl, Lb, k, got, what, errs)
             mask, _ = join_check(nt, fl, rl, Lb, k, True, what + " nt", errs)
-            exact(mask, fused2.plain_candidates(Fp, Rp, O, "mask", C),
-                  what + " nt cand_join vs the frames' mask")
+            exact(fused2.pack_bits16(got[2] != 0, O), mask,
+                  what + " counts' k-mer hits vs cand_join's mask")
             bands = []
             for kind, (pm, pmm) in params.items():
                 kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=maxoverlap,
@@ -582,9 +529,10 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
                 errs["shortlist"] = max(errs["shortlist"], err)
                 errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
                 bands.append(int((sl[:, 2 * SL + 2] > SL).sum()))
-            say("%s: dense kernels == plain (frames, counts; shortlist of "
-                "%s, rows with n_band > %d: %s)"
-                % (what, "/".join(params), SL, bands))
+            say("%s: counts == plain (row blocks of op %s too, k-mer hits "
+                "== cand_join's mask); shortlist of %s == plain, rows with "
+                "n_band > %d: %s" % (what, "/".join(map(str, OPS)),
+                                     "/".join(params), SL, bands))
         if tag == "reads":
             rows = np.arange(B, dtype=np.int64)
             for k in (1, 2, 3):
@@ -598,43 +546,92 @@ def dense_kernels(Lb, batch, rng, params, errs, times):
                 "k=1,2,3 (%d rows with N)" % (Lb, int(
                     ((batch.nt_packed()[:, :Lb].view(np.uint8) & 0x0F)
                      == 0x0F).any(axis=1).sum())))
-            Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, 0)
-            got = dense.counts(nt, Fk, Rk, O)
+            got = dense.counts(nt, fl, rl, Lb, O, 0)
             pm, pmm = params["counts"]
             kw = dict(O=O, SL=SL, minoverlap=2, maxoverlap=0,
                       algo_kind="counts", pmatch=pm, pmismatch=pmm, nn=nn,
                       band=fused2.BAND_COUNTS)
-            times[("kmer_frames_nt", Lb)] = paired_ms(
-                lambda: fused2.plain_kmer_frames_nt(nt, fl, rl, Lb, 0),
-                lambda: dense.kmer_frames_nt(nt, fl, rl, Lb, 0))
-            times[("counts", Lb)] = paired_ms(
-                lambda: fused2.plain_counts(nt, Fk, Rk, O),
-                lambda: dense.counts(nt, Fk, Rk, O))
+            for name, k in (("counts", 0), ("counts k=2", 2)):
+                times[(name, Lb)] = paired_ms(
+                    lambda: fused2.plain_counts(nt, fl, rl, Lb, O, k),
+                    lambda: dense.counts(nt, fl, rl, Lb, O, k))
+                nbytes = B * (Lb + 8 + 12 * O)
+                ops = 3 * live_cells(O) // 32
+                DESIGN_OPS[(name, Lb)] = COUNTS_WORD_OPS * counts_words(O)
+                if k:
+                    hits = int(dense.counts(nt, fl, rl, Lb, O, k)[2].sum())
+                    ops += emitted(fl, Lb) + emitted(rl, O) + hits
+                    DESIGN_OPS[(name, Lb)] += join_ops(Lb, rl, O)
+                WORK[(name, Lb)] = (nbytes, ops, 0)
+            # the row block of one op cell of a (dp, 2) mesh (K10): it
+            # reads the whole row and writes all O diagonals
+            times[("counts rows", Lb)] = paired_ms(
+                lambda: fused2.plain_counts(nt, fl, rl, Lb, O, 0, 0, O // 2),
+                lambda: dense.counts(nt, fl, rl, Lb, O, 0, 0, O // 2))
+            half = O // 2
+            WORK[("counts rows", Lb)] = (
+                B * (Lb + 8 + 12 * O),
+                3 * B * (half * O - half * (half - 1) // 2) // 32, 0)
             times[("shortlist", Lb)] = paired_ms(
                 lambda: fused2.plain_shortlist(*got, fl, rl, fo, ro, **kw),
                 lambda: dense.shortlist(*got, fl, rl, fo, ro, **kw))
-            WORK[("kmer_frames_nt", Lb)] = (B * (Lb + 8 + 8 * Lb),
-                                            2 * B * Lb, 0)
-            WORK[("counts", Lb)] = (B * (Lb + 8 * Lb + 12 * O),
-                                    3 * live_cells(O) // 32, 0)
-            DESIGN_OPS[("counts", Lb)] = 3 * live_cells(O)
             WORK[("shortlist", Lb)] = (B * (12 * O + 16 + 4 * (2 * SL + 4)),
                                        B * O, B * O)
-            say_times(times, DENSE, Lb, 0)
+            slots = -(-O // 32)
+            DESIGN_OPS[("shortlist", Lb)] = B * (10 * O + 32 * SL * (
+                slots + 15))
+            say_times(times, ("counts", "counts k=2", "counts rows",
+                              "shortlist"), Lb)
+            against_replaced(times, Lb, card)
+    shortlist_edges(Lb, params, errs)
 
 
-def counts_blocks(nt, Fk, Rk, O, full, what, errs, times=None):
+def shortlist_edges(O, params, errs):
+    """shortlist of every score kind against its twin on the edge rows of
+    tests/shortlist_rows.py (all -inf, -0.0 tying +0.0, equal scores
+    across lanes and words, fewer finite scores than SL, a stitch wrap),
+    with maxoverlap 0 and 150."""
+    import numpy as np
+    import torch
+
+    from pandaseq_tpu_torch import tables
+    from pandaseq_tpu_torch.ops import dense, fused2
+    from tests.shortlist_rows import edge_rows
+
+    rows = {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in edge_rows(np.random.default_rng(O), O).items()}
+    args = [rows[k] for k in ("m", "unk", "candc", "flen", "rlen", "fo",
+                              "ro")]
+    kinds = dict(params, pear=(0.0, 0.0))
+    for kind, (pm, pmm) in kinds.items():
+        lut = kind == "pear"
+        for maxoverlap in (0, 150):
+            kw = dict(O=O, SL=SL, minoverlap=3, maxoverlap=maxoverlap,
+                      algo_kind=kind, pmatch=pm, pmismatch=pmm,
+                      nn=float(tables.QUAL_NN_SIMPLE_BAYESIAN),
+                      band=fused2.BAND_LUT if lut else fused2.BAND_COUNTS,
+                      lutsum=rows["lutsum"] if lut else None)
+            err, ulp = shortlist_err(
+                dense.shortlist(*args, **kw), fused2.plain_shortlist(
+                    *args, **kw), "O=%d %s edge rows" % (O, kind))
+            errs["shortlist"] = max(errs["shortlist"], err)
+            errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
+    say("O=%d: shortlist == plain on the edge rows for %s"
+        % (O, "/".join(kinds)))
+
+
+def counts_blocks(nt, fl, rl, Lb, k, full, what, errs):
     """counts over the row blocks of op 2 and 4 against the twin, and
-    summed against the full-plane kernel, exactly; with ``times``, the
-    CUDA-event times of the block [0, O/2) and its twin."""
+    summed against the full-plane kernel, exactly."""
     import torch
 
     from pandaseq_tpu_torch.ops import dense, fused2
+    O = Lb
     for op in OPS:
         sums = [torch.zeros_like(x) for x in full]
         for j0, Oj in row_blocks(O, op):
-            got = dense.counts(nt, Fk, Rk, O, j0, Oj)
-            want = fused2.plain_counts(nt, Fk, Rk, O, j0, Oj)
+            got = dense.counts(nt, fl, rl, Lb, O, k, j0, Oj)
+            want = fused2.plain_counts(nt, fl, rl, Lb, O, k, j0, Oj)
             for acc, g, w in zip(sums, got, want):
                 errs["counts"] = max(errs["counts"], exact(
                     g, w, "%s counts rows [%d, %d)" % (what, j0, j0 + Oj)))
@@ -642,14 +639,6 @@ def counts_blocks(nt, Fk, Rk, O, full, what, errs, times=None):
         for acc, f in zip(sums, full):
             exact(acc, f, "%s counts op=%d sum vs the full plane"
                   % (what, op))
-    say("%s: counts row blocks of op %s == plain, sum == full"
-        % (what, "/".join(map(str, OPS))))
-    if times is not None:
-        times[("counts", "rows", O)] = ms, pms = paired_ms(
-            lambda: fused2.plain_counts(nt, Fk, Rk, O, 0, O // 2),
-            lambda: dense.counts(nt, Fk, Rk, O, 0, O // 2))
-        say("time counts rows [0, %d) B=%d O=%d: kernel %.4f ms, plain %.4f "
-            "ms (CUDA events)" % (O // 2, B, O, ms, pms))
 
 
 def _lut_params():
@@ -701,8 +690,7 @@ def lut_kernels(Lb, batch, rng, luts, errs, times):
     zeros = t(np.zeros(B, np.int32))
     for tag, *arrays in cases:
         nt, fq, rq, fl, rl = map(t, arrays)
-        Fk, Rk = dense.kmer_frames_nt(nt, fl, rl, Lb, 2)
-        counts = dense.counts(nt, Fk, Rk, O)
+        counts = dense.counts(nt, fl, rl, Lb, O, 2)
         for kind, (tm64, tmm64, nn_term) in luts.items():
             what = "Lb=O=%d %s %s" % (Lb, kind, tag)
             tm, tmm = (fused2.lut_table(x, dev) for x in (tm64, tmm64))
@@ -735,10 +723,10 @@ def lut_kernels(Lb, batch, rng, luts, errs, times):
                 lambda: dense.lut_sums(*args))
             WORK[("lut_sums", Lb)] = (B * (3 * Lb + 8 + 4 * O), 0,
                                       live_cells(O) - B * O)
-            say_times(times, ("lut_sums",), Lb, 2)
+            say_times(times, ("lut_sums",), Lb)
 
 
-def phase_kernels(tmp, errs):
+def phase_kernels(tmp, errs, card):
     """Phase 2: every kernel == its plain twin on the card; returns
     ({(kernel, Lb): (ms, plain_ms)}, the Lb=256 batch with N, the LUT
     parameters)."""
@@ -764,7 +752,7 @@ def phase_kernels(tmp, errs):
         sparse_kernels(Lb, make_batch(list(fq.read_pairs(*fast)), Lb), rng,
                        errs, times)
         batch_n = make_batch(list(fq.read_pairs(*with_n)), Lb)
-        dense_kernels(Lb, batch_n, rng, params, errs, times)
+        dense_kernels(Lb, batch_n, rng, params, errs, times, card)
         lut_kernels(Lb, batch_n, rng, luts, errs, times)
         if Lb == 256:
             batch_256 = batch_n
@@ -1014,8 +1002,8 @@ def lut_mesh_step(mesh, batch, luts):
     launched = cand.launch_counts()
     cells = mesh.shape["dp"] * mesh.shape["op"]
     n = len(luts)
-    want = dict(dict.fromkeys(KERNELS, 0), kmer_frames_nt=n * (cells + 1),
-                counts=n * (cells + 1), lut_sums=n * (cells + 1),
+    want = dict(dict.fromkeys(KERNELS, 0), counts=n * (cells + 1),
+                lut_sums=n * (cells + 1),
                 shortlist=n * (mesh.shape["dp"] + 1))
     if launched != want:
         raise SystemExit("LUT library path launched %s, expected %s"
@@ -1257,7 +1245,7 @@ def main() -> int:
     errs["shortlist_ulp"] = 0
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
             as tmp:
-        times, batch_256, luts = phase_kernels(tmp, errs)
+        times, batch_256, luts = phase_kernels(tmp, errs, card)
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
         counts, big, fasta = phase_e2e(tmp, card)
@@ -1268,7 +1256,7 @@ def main() -> int:
     for name in KERNELS:
         ms, pms = times[(name, 256)]
         bms, by = bound(name, 256)
-        path = ("sparse" if name in SPARSE + OLD_SPARSE
+        path = ("sparse" if name in SPARSE
                 else "lut" if name == "lut_sums" else "dense")
         # no single PyTorch call computes any of these functions
         kernels.append({"name": name, "route": "cuda",

@@ -17,8 +17,9 @@ device seams written for PyTorch:
   never a CUDA tensor. The sparse path (every built-in algorithm at
   ``-k >= 1``) runs the ``cand_join`` kernel into a ``[B, 6]`` int16
   candidate list (ops/cand.py); the dense path (``-k 0`` on the device,
-  custom algorithms at any ``-k``) runs ``kmer_frames_nt`` -> ``counts``
-  -> ``shortlist`` into a ``[B, 20]`` int32 shortlist (ops/dense.py).
+  custom algorithms at any ``-k``) runs ``counts`` (the k-mer frames
+  fused in) -> ``shortlist`` into a ``[B, 20]`` int32 shortlist
+  (ops/dense.py).
   pear and rdp_mle never take the dense path: with the native library,
   which the port requires, they run sparse at every ``-k``, so their
   LUT sums (``lut_sums``) are reached only through the library entry

@@ -15,8 +15,7 @@
 //   order), and let each reverse emission find its k-mer's stored
 //   occurrences in the sorted run.
 // Plain versions: pandaseq_tpu_torch/ops/fused2.py plain_candidates_join
-// (the composition plain_kmer_frames[_nt] + plain_candidates, which the
-// kernels kmer_frames.cu + cand.cu computed in two launches).
+// (the composition plain_kmer_frames[_nt] + plain_candidates).
 //
 // Per pair b, one block:
 // 1. Decode the row into shared memory (2-bit k-mer code, bit 2 = N):
@@ -25,21 +24,13 @@
 //    p % (L/4) at bits 2*(p / (L/4)); every base non-N) or, NT, the
 //    nibble plane [B, L] (forward low nibble, reverse high nibble, read
 //    unsigned; N is nibble 0x0F, a pad 0 is not N).
-// 2. Forward source keys kmer << 10 | (L-1-p) (fused2.py:158) at every
-//    emitted position: p <= min(flen-9, L-9) taken literally, and for NT
-//    no N in p..p+8; other slots hold 0xFFFFFFFF, which sorts last.
-// 3. Bitonic sort of the Lpad (next power of two >= L) keys in shared
-//    memory. Inside one k-mer's run ascending key is descending p, which
-//    is raw order, so the stored occurrences (the first num_kmers in raw
-//    order, assembler.c:91-100) are the first num_kmers keys of the run.
-//    The rank is over the whole read; only then do the row block's
-//    sources count.
-// 4. Each reverse emission i (8 <= i < rlen, i < O, for NT no N in
-//    i-8..i) binary-searches its k-mer's run and walks its first
-//    num_kmers keys; a stored source j in [j0, jend) with t = j+i < O
-//    sets bit t of an O/32-word shared mask (a shared atomicOr; hits are
-//    a few per pair). num_kmers = 0 stores nothing, any num_kmers >= 1 is
-//    exact (the JAX join unrolls only up to 2).
+// 2-4. The sort-join of join.cuh (shared with counts.cu): forward keys
+//    kmer << 10 | (L-1-p), a bitonic sort that ranks the whole read, and
+//    the reverse emissions' probes (8 <= i < min(rlen, O)). Each hit
+//    (stored source j in [j0, jend), t = j+i < O) sets bit t of an
+//    O/32-word shared mask (a shared atomicOr; hits are a few per pair).
+//    num_kmers = 0 stores nothing, any num_kmers >= 1 is exact (the JAX
+//    join unrolls only up to 2).
 // 5. Epilogue by one warp: mode 1 writes the mask words as int32 (bit 31
 //    makes a word negative, the same bit pattern); mode 0 writes
 //    [popcount, first C offsets t+1 ascending, zero-padded, 0] as int16,
@@ -53,10 +44,10 @@
 // floor is the sort: Lpad/2 * log2(Lpad) * (log2(Lpad)+1)/2
 // compare-exchanges (4608 at Lpad=256, 11520 at 512), a min and a max
 // each, 75.5M integer operations for 8192 pairs at 256, ~4.5 us at 64
-// lanes per SM. Nothing intermediate goes to device memory: the frames
-// that kmer_frames wrote (2 KB a pair at L=256) and cand read back stay
-// in shared memory, and the O(L^2) rank scan and O(O^2/2) hit scan of
-// those two kernels become an O(L log^2 L) sort and O(L log L) probes.
+// lanes per SM. Nothing intermediate goes to device memory: the k-mer
+// frames (2 KB a pair at L=256) stay in shared memory, and an O(L^2)
+// rank scan and O(O^2/2) hit scan become an O(L log^2 L) sort and
+// O(L log L) probes.
 // A row block [j0, jend) only filters the bits set: a mesh op cell
 // repeats the decode, sort and probes of the whole pair.
 //
@@ -68,18 +59,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "join.cuh"
+
 namespace {
 
-constexpr int KMER_LEN = 8;
-constexpr int MAX_L = 1024;
+constexpr int MAX_L = join::MAX_L;
 constexpr int MAX_THREADS = 512;
-constexpr uint32_t NO_KEY = 0xFFFFFFFFu;
-constexpr uint8_t N_BIT = 4;  // shared-memory code byte: bits 0-1 code
-
-__device__ __forceinline__ uint8_t nt_code(unsigned n) {
-    const uint8_t c = n == 8 ? 3 : n == 4 ? 2 : n == 2 ? 1 : 0;
-    return n == 0x0F ? (uint8_t) (c | N_BIT) : c;
-}
+using join::nt_code;
 
 template <bool NT>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
@@ -119,71 +105,15 @@ cand_join_kernel(const uint8_t *__restrict__ plane,
     for (int w = tid; w < W; w += T) mask[w] = 0u;
     __syncthreads();
 
-    // 2. forward source keys
+    // 2-4. forward keys, sort, probes (join.cuh)
     const int fmax = min(flen[b] - 9, L - 9);
-    for (int p = tid; p < Lpad; p += T) {
-        uint32_t key = NO_KEY;
-        if (p <= fmax && num_kmers > 0) {
-            // k-mer over p..p+7, N window over p..p+8
-            uint32_t acc = 0;
-            uint8_t any = cf[p + KMER_LEN];
-            for (int t = 0; t < KMER_LEN; ++t) {
-                const uint8_t c = cf[p + t];
-                acc |= (uint32_t) (c & 3) << (2 * t);
-                any |= c;
-            }
-            if (!NT || !(any & N_BIT))
-                key = acc << 10 | (uint32_t) (L - 1 - p);
-        }
-        keys[p] = key;
-    }
+    join::forward_keys<NT>(cf, L, Lpad, fmax, num_kmers, keys, tid, T);
     __syncthreads();
-
-    // 3. bitonic sort, ascending, Lpad a power of two
-    for (int k = 2; k <= Lpad; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int x = tid; x < Lpad / 2; x += T) {
-                const int lo = ((x & ~(j - 1)) << 1) | (x & (j - 1));
-                const int hi = lo + j;
-                const uint32_t a = keys[lo];
-                const uint32_t c = keys[hi];
-                if ((a > c) == ((lo & k) == 0)) {
-                    keys[lo] = c;
-                    keys[hi] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-
-    // 4. probes: reverse emission i, k-mer over i-7..i, N window i-8..i
-    const int imax = min(rlen[b], O);
-    for (int i = KMER_LEN + tid; i < imax; i += T) {
-        uint32_t r = 0;
-        uint8_t any = cr[i - KMER_LEN];
-        for (int t = 0; t < KMER_LEN; ++t) {
-            const uint8_t c = cr[i - t];
-            r |= (uint32_t) (c & 3) << (2 * t);
-            any |= c;
-        }
-        if (NT && (any & N_BIT)) continue;
-        // lower bound of r << 10 among the sorted keys
-        const uint32_t target = r << 10;
-        int lo = 0, hi = Lpad;
-        while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (keys[mid] < target) lo = mid + 1;
-            else hi = mid;
-        }
-        for (int q = lo; q < lo + num_kmers && q < Lpad; ++q) {
-            const uint32_t key = keys[q];
-            if ((key >> 10) != r) break;
-            const int j = L - 1 - (int) (key & 1023u);
-            const int t = j + i;
-            if (j >= j0 && j < jend && t < O)
-                atomicOr(&mask[t >> 5], 1u << (t & 31));
-        }
-    }
+    join::bitonic_sort(keys, Lpad, tid, T);
+    join::probes<NT>(cr, keys, L, Lpad, O, min(rlen[b], O), num_kmers, j0,
+                     jend, tid, T, [&](int t) {
+                         atomicOr(&mask[t >> 5], 1u << (t & 31));
+                     });
     __syncthreads();
 
     // 5. epilogue
@@ -249,4 +179,8 @@ extern "C" int psq_cuda_cand_join_nt(const void *nt, const void *flen,
                                      int C, void *out, void *stream) {
     return launch<true>(nt, flen, rlen, B, L, O, j0, Oj, num_kmers, mode, C,
                         out, stream);
+}
+
+extern "C" const char *psq_cuda_error_string(int err) {
+    return cudaGetErrorString((cudaError_t) err);
 }

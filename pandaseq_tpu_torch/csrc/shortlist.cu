@@ -5,8 +5,8 @@
 // for the count-based score kinds (simple_bayesian / uparse "counts",
 // ea_util, flash, stitch) and the LUT kind (pear, rdp_mle: the scores
 // are the f32 LUT sums of lut_sums.cu), the tail of _shortlist_core
-// (:358) and of assemble_shortlist(_nt, _packed) (:396-466). Plain twin:
-// pandaseq_tpu_torch/ops/fused2.py plain_shortlist.
+// (:358) and of assemble_shortlist(_nt, _packed) (:396-466). Plain
+// version: pandaseq_tpu_torch/ops/fused2.py plain_shortlist.
 //
 // Input: the exact diagonal sums m, unk, candc [B, O] int32 (counts.cu),
 // for the LUT kind the sums lutsum [B, O] f32, and flen, rlen, fo, ro [B]
@@ -24,13 +24,23 @@
 // is the full-precision one (no fast math). The ordering is (score
 // descending, offset ascending) with float comparison, so -0.0 ties
 // +0.0 and a row of -inf gives besto32 = 1 — the stable descending sort
-// of the twin. flash divides integers with floor (not C's truncation).
+// of the plain version. flash divides integers with floor (not C's
+// truncation).
 //
-// What bounds it on this card: nothing much — a pair moves 3 KB in
-// (at O=256) and 80 B out, and does O scores plus SL block-wide
-// argmax rounds. One block per pair keeps the row's scores in shared
-// memory; each round is a warp-shuffle reduction and one pass over the
-// warps' results, and the chosen offset is marked taken.
+// Design: one warp per pair, WARPS pairs per block, no block barrier.
+// Lane l holds offsets x = l + 32k, k < K (O <= 32K; K a template
+// argument, so the K scores stay in registers), loaded coalesced. The
+// block-wide reductions become warp votes: ALL_BITS_IF_NONE is
+// __any_sync, examined and n_band sums of __popc(__ballot_sync), stitch's
+// wrap __any_sync. Each of the SL rounds takes each lane's best untaken
+// score, then a 5-step xor-shuffle argmax on (score, offset), after
+// which every lane knows the winner and its lane marks it taken; lane r
+// keeps round r's winner for the output.
+//
+// What bounds it on this card: its bytes, 12*O + 16 in and 4*(2*SL+4)
+// out a pair (26.0 MB for 8192 pairs at O=256, 7.8 us at 3.35 TB/s);
+// one f32 score and one compare per offset take less. The design adds
+// SL * (K + 10) operations a lane for the rounds.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,10 +48,10 @@
 
 namespace {
 
-constexpr int MAX_O = 1024;
-constexpr int MAX_SL = 32;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int MAX_SL = 32;  // one output slot per lane
+constexpr int WARPS = 8;    // pairs per block
+constexpr int THREADS = 32 * WARPS;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 // score kinds (ops/dense.py SCORE_KINDS); 0 is "counts"
 constexpr int KIND_EA_UTIL = 1, KIND_FLASH = 2, KIND_STITCH = 3,
               KIND_LUT = 4;
@@ -49,32 +59,6 @@ constexpr int KIND_EA_UTIL = 1, KIND_FLASH = 2, KIND_STITCH = 3,
 // (score descending, index ascending)
 __device__ __forceinline__ bool ahead(float s, int i, float bs, int bi) {
     return s > bs || (s == bs && i < bi);
-}
-
-// the block's first maximum, handed to every thread
-__device__ void block_best(float &bs, int &bi, float *ws, int *wi) {
-    for (int off = 16; off > 0; off >>= 1) {
-        const float s = __shfl_down_sync(0xffffffffu, bs, off);
-        const int i = __shfl_down_sync(0xffffffffu, bi, off);
-        if (ahead(s, i, bs, bi)) {
-            bs = s;
-            bi = i;
-        }
-    }
-    if ((threadIdx.x & 31) == 0) {
-        ws[threadIdx.x >> 5] = bs;
-        wi[threadIdx.x >> 5] = bi;
-    }
-    __syncthreads();
-    bs = ws[0];
-    bi = wi[0];
-    for (int w = 1; w < WARPS; ++w) {
-        if (ahead(ws[w], wi[w], bs, bi)) {
-            bs = ws[w];
-            bi = wi[w];
-        }
-    }
-    __syncthreads();
 }
 
 __device__ __forceinline__ int nvalid_of(int o2, int fl, int rl) {
@@ -114,7 +98,11 @@ __device__ float score_of(int kind, int o2, int fl, int rl, int mv, int uv,
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// up to 16 slots a lane, 32 registers a thread let 8 blocks (64 warps)
+// share an SM: one wave of 132 * 64 pairs covers a batch of 8192, where
+// 40 registers (6 blocks a SM) took 1.3 waves
+template <int K>
+__global__ void __launch_bounds__(THREADS, K <= 16 ? 8 : 1)
 shortlist_kernel(const int32_t *__restrict__ m,
                  const int32_t *__restrict__ unk,
                  const int32_t *__restrict__ candc,
@@ -122,19 +110,13 @@ shortlist_kernel(const int32_t *__restrict__ m,
                  const int32_t *__restrict__ flen,
                  const int32_t *__restrict__ rlen,
                  const int32_t *__restrict__ fo,
-                 const int32_t *__restrict__ ro, int O, int SL,
+                 const int32_t *__restrict__ ro, long B, int O, int SL,
                  int minoverlap, int maxoverlap, int kind, float pmatch,
                  float pmismatch, float nn, float band,
                  int32_t *__restrict__ out) {
-    __shared__ float score[MAX_O];
-    __shared__ uint8_t taken[MAX_O];
-    __shared__ float ws[WARPS];
-    __shared__ int wi[WARPS];
-    __shared__ float top_v[MAX_SL];
-    __shared__ int top_i[MAX_SL];
-    __shared__ int s_examined, s_band;
-
-    const long b = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const long b = (long) blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (b >= B) return;  // the whole warp
     const int32_t *mrow = m + b * O;
     const int32_t *urow = unk + b * O;
     const int32_t *crow = candc + b * O;
@@ -144,87 +126,124 @@ shortlist_kernel(const int32_t *__restrict__ m,
     const int maxo = maxoverlap == 0
         ? min(fl, rl)
         : min(fl + rl - minoverlap - fo[b] - ro[b] - 1, maxoverlap);
-    if (threadIdx.x == 0) {
-        s_examined = 0;
-        s_band = 0;
-    }
-    int any = 0;
-    for (int x = threadIdx.x; x < O; x += blockDim.x) {
-        const int o2 = x + 1;
-        any |= o2 >= minoverlap && o2 <= maxo && crow[x] != 0;
+
+    // slot k of this lane is offset x = lane + 32k
+    uint32_t in_range = 0u, hit = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int x = lane + 32 * k;
+        if (x < O) {
+            const bool in = x + 1 >= minoverlap && x + 1 <= maxo;
+            in_range |= (uint32_t) in << k;
+            hit |= (uint32_t) (in && crow[x] != 0) << k;
+        }
     }
     // ALL_BITS_IF_NONE: no k-mer hit in range examines the whole range
-    any = __syncthreads_or(any);
+    const uint32_t cand = __any_sync(FULL, hit != 0u) ? hit : in_range;
 
-    int examined = 0, wrapped = 0;
-    for (int x = threadIdx.x; x < O; x += blockDim.x) {
-        const int o2 = x + 1;
-        const bool cand = o2 >= minoverlap && o2 <= maxo
-            && (!any || crow[x] != 0);
-        const int mv = mrow[x], uv = urow[x];
-        const int nvalid = nvalid_of(o2, fl, rl);
-        const int mmv = nvalid - mv - uv;
-        const float s = kind == KIND_LUT
-            ? lutsum[b * O + x]
-            : score_of(kind, o2, fl, rl, mv, uv, mmv, nvalid, pmatch,
-                       pmismatch, nn);
-        if (kind == KIND_STITCH) wrapped |= cand && mv - mmv < 0;
-        examined += cand;
-        score[x] = cand ? s : -INFINITY;
-        taken[x] = 0;
+    float score[K];
+    int examined = 0;
+    bool wrapped = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int x = lane + 32 * k;
+        const bool c = (cand >> k) & 1u;
+        float s = -INFINITY;
+        if (c) {
+            const int o2 = x + 1;
+            const int mv = mrow[x], uv = urow[x];
+            const int nvalid = nvalid_of(o2, fl, rl);
+            const int mmv = nvalid - mv - uv;
+            s = kind == KIND_LUT
+                ? lutsum[b * O + x]
+                : score_of(kind, o2, fl, rl, mv, uv, mmv, nvalid, pmatch,
+                           pmismatch, nn);
+            wrapped |= kind == KIND_STITCH && mv - mmv < 0;
+        }
+        score[k] = s;
+        examined += __popc(__ballot_sync(FULL, c));
     }
-    atomicAdd(&s_examined, examined);
-    wrapped = __syncthreads_or(wrapped);
+    wrapped = __any_sync(FULL, wrapped);
 
+    // top SL; slots past O are never candidates: taken from the start
+    uint32_t taken = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        if (lane + 32 * k >= O) taken |= 1u << k;
+    float my_v = -INFINITY, best = -INFINITY;
+    int my_i = 0, best_i = 0;
     for (int r = 0; r < SL; ++r) {
         float bs = -INFINITY;
         int bi = 0x7fffffff;
-        for (int x = threadIdx.x; x < O; x += blockDim.x) {
-            if (!taken[x] && ahead(score[x], x, bs, bi)) {
-                bs = score[x];
-                bi = x;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            if (!((taken >> k) & 1u) && ahead(score[k], lane + 32 * k, bs,
+                                                bi)) {
+                bs = score[k];
+                bi = lane + 32 * k;
             }
         }
-        block_best(bs, bi, ws, wi);
-        if (threadIdx.x == 0) {
-            top_v[r] = bs;
-            top_i[r] = bi;
-            taken[bi] = 1;
+        for (int off = 16; off > 0; off >>= 1) {
+            const float s = __shfl_xor_sync(FULL, bs, off);
+            const int i = __shfl_xor_sync(FULL, bi, off);
+            if (ahead(s, i, bs, bi)) {
+                bs = s;
+                bi = i;
+            }
         }
-        __syncthreads();
+        if (lane == (bi & 31)) taken |= 1u << (bi >> 5);
+        if (lane == r) {
+            my_v = bs;
+            my_i = bi;
+        }
+        if (r == 0) {
+            best = bs;
+            best_i = bi;
+        }
     }
 
-    const float best = top_v[0];
     const float thr = __fsub_rn(best, band);
-    int nb = 0;
-    for (int x = threadIdx.x; x < O; x += blockDim.x) {
-        const float s = score[x];  // -inf off the candidate set
-        nb += isfinite(s) && s >= thr;
-    }
-    atomicAdd(&s_band, nb);
-    __syncthreads();
+    int n_band = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k)  // -inf off the candidate set
+        n_band += __popc(__ballot_sync(
+            FULL, isfinite(score[k]) && score[k] >= thr));
 
     int32_t *orow = out + b * (2 * SL + 4);
-    for (int r = threadIdx.x; r < SL; r += blockDim.x) {
-        const float v = top_v[r];
-        const int i = top_i[r];
-        const bool live = v > -INFINITY;
+    if (lane < SL) {
+        const bool live = my_v > -INFINITY;
         unsigned packed = 0u;
         if (live) {
-            const int mv = mrow[i];
-            const int mmv = nvalid_of(i + 1, fl, rl) - mv - urow[i];
-            packed = (unsigned) (i + 1) | ((unsigned) mv << 10)
+            const int mv = mrow[my_i];
+            const int mmv = nvalid_of(my_i + 1, fl, rl) - mv - urow[my_i];
+            packed = (unsigned) (my_i + 1) | ((unsigned) mv << 10)
                 | ((unsigned) mmv << 20);
         }
-        orow[r] = (int32_t) packed;
-        orow[SL + r] = __float_as_int(live ? v : -3e38f);
+        orow[lane] = (int32_t) packed;
+        orow[SL + lane] = __float_as_int(live ? my_v : -3e38f);
     }
-    if (threadIdx.x == 0) {
-        orow[2 * SL] = top_i[0] + 1;
-        orow[2 * SL + 1] = s_examined;
-        orow[2 * SL + 2] = kind == KIND_STITCH && wrapped ? 1 : s_band;
+    if (lane == 0) {
+        orow[2 * SL] = best_i + 1;
+        orow[2 * SL + 1] = examined;
+        orow[2 * SL + 2] = kind == KIND_STITCH && wrapped ? 1 : n_band;
         orow[2 * SL + 3] = __float_as_int(isfinite(best) ? best : -3e38f);
     }
+}
+
+template <int K>
+void launch(const void *m, const void *unk, const void *candc,
+            const void *lutsum, const void *flen, const void *rlen,
+            const void *fo, const void *ro, long B, int O, int SL,
+            int minoverlap, int maxoverlap, int kind, float pmatch,
+            float pmismatch, float nn, float band, void *out,
+            cudaStream_t stream) {
+    const unsigned blocks = (unsigned) ((B + WARPS - 1) / WARPS);
+    shortlist_kernel<K><<<blocks, THREADS, 0, stream>>>(
+        (const int32_t *) m, (const int32_t *) unk, (const int32_t *) candc,
+        (const float *) lutsum, (const int32_t *) flen,
+        (const int32_t *) rlen, (const int32_t *) fo, (const int32_t *) ro,
+        B, O, SL, minoverlap, maxoverlap, kind, pmatch, pmismatch, nn, band,
+        (int32_t *) out);
 }
 
 }  // namespace
@@ -237,14 +256,17 @@ extern "C" int psq_cuda_shortlist(const void *m, const void *unk,
                                   int minoverlap, int maxoverlap, int kind,
                                   float pmatch, float pmismatch, float nn,
                                   float band, void *out, void *stream) {
-    if (B > 0)
-        shortlist_kernel<<<(unsigned) B, THREADS, 0,
-                           (cudaStream_t) stream>>>(
-            (const int32_t *) m, (const int32_t *) unk,
-            (const int32_t *) candc, (const float *) lutsum,
-            (const int32_t *) flen,
-            (const int32_t *) rlen, (const int32_t *) fo,
-            (const int32_t *) ro, O, SL, minoverlap, maxoverlap, kind,
-            pmatch, pmismatch, nn, band, (int32_t *) out);
+    if (B > 0) {
+#define PSQ_SHORTLIST(K)                                                  \
+    launch<K>(m, unk, candc, lutsum, flen, rlen, fo, ro, B, O, SL,        \
+              minoverlap, maxoverlap, kind, pmatch, pmismatch, nn, band, \
+              out, (cudaStream_t) stream)
+        if (O <= 128) PSQ_SHORTLIST(4);
+        else if (O <= 256) PSQ_SHORTLIST(8);
+        else if (O <= 384) PSQ_SHORTLIST(12);
+        else if (O <= 512) PSQ_SHORTLIST(16);
+        else PSQ_SHORTLIST(32);
+#undef PSQ_SHORTLIST
+    }
     return (int) cudaGetLastError();
 }

@@ -5,7 +5,8 @@ them at once, in parallel processes; the objects link into one shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. The build happens at first use, from
 the package's own sources, into ``build/kernels/`` beside the package.
-The library's name carries a hash of the sources and flags; it is
+The library's name carries a hash of the flags and of every file under
+``csrc/`` (the sources and the headers they share, ``join.cuh``); it is
 written to a temporary file and renamed, so a rebuild never rewrites a
 library that a running process has loaded (as
 ``io/native.py`` does for the host library). ``nvcc``'s
@@ -24,8 +25,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("cand_join.cu", "kmer_frames.cu", "cand.cu", "counts.cu",
-           "shortlist.cu", "lut_sums.cu")
+SOURCES = ("cand_join.cu", "counts.cu", "shortlist.cu", "lut_sums.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
 BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,9 +50,11 @@ def build() -> str:
     returns the library's path. Raises when nvcc fails."""
     srcs = [os.path.join(_CSRC, s) for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as fh:
-            h.update(fh.read())
+    for name in sorted(os.listdir(_CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(_CSRC, name), "rb") as fh:
+                h.update(fh.read())
     so = os.path.join(BUILD_DIR, f"libpsq_cuda-{h.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so
@@ -98,10 +100,8 @@ def load() -> ctypes.CDLL:
                                        P],
                 "psq_cuda_cand_join_nt": [P, P, P, L, I, I, I, I, I, I, I,
                                           P, P],
-                "psq_cuda_kmer_frames": [P, P, P, P, P, L, I, I, P],
-                "psq_cuda_kmer_frames_nt": [P, P, P, P, P, L, I, I, P],
-                "psq_cuda_cand": [P, P, L, I, I, I, I, I, I, P, P],
-                "psq_cuda_counts": [P, P, P, L, I, I, I, I, P, P, P, P],
+                "psq_cuda_counts": [P, P, P, L, I, I, I, I, I, P, P, P,
+                                    P],
                 "psq_cuda_shortlist": [P, P, P, P, P, P, P, P, L, I, I, I,
                                        I, I, F, F, F, F, P, P],
                 "psq_cuda_lut_sums": [P, P, P, P, P, L, I, I, I, P, P, F,

@@ -5,10 +5,6 @@ kernel of the port (the dense path's wrappers are in ``ops/dense.py``).
 ``candidates_join`` (csrc/cand_join.cu) is the candidate search of every
 path: frames, rank and hit search of a pair in one sort-join kernel, on
 the 4-bit packed plane or, ``nt=True``, the nibble plane with N.
-``kmer_frames`` (csrc/kmer_frames.cu) and ``candidates`` (csrc/cand.cu)
-computed the same in two launches; no engine path calls them any more,
-and they stay only so that the smoke test times them beside
-``candidates_join`` on one card.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 what its kernel does not take, allocates the outputs with
@@ -27,8 +23,7 @@ import torch
 
 from . import _build
 
-KERNELS = ("cand_join", "kmer_frames", "cand", "kmer_frames_nt", "counts",
-           "shortlist", "lut_sums")
+KERNELS = ("cand_join", "counts", "shortlist", "lut_sums")
 # launches of each kernel since the last reset_launch_counts()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -125,56 +120,3 @@ def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, j0=0,
                 entry="cand_join_nt" if nt else None)
     return out
 
-
-def kmer_frames(plane4, flen, rlen, L, num_kmers):
-    """(Fkm, Rkm) [B, L] int32 on the card from the packed plane4
-    [B, L/2] int8 and flen/rlen [B] int32 (twin:
-    fused2.plain_kmer_frames)."""
-    dev = plane4.device
-    if dev.type != "cuda":
-        raise ValueError(f"kmer_frames runs on a CUDA device, not {dev}")
-    if L % 8 or not 0 < L <= MAX_WIDTH:
-        raise ValueError(f"frame width {L} must be a multiple of 8 in "
-                         f"(0, {MAX_WIDTH}]")
-    if num_kmers < 0:
-        raise ValueError(f"num_kmers must be >= 0, got {num_kmers}")
-    B = plane4.shape[0]
-    _check(plane4, "plane4", torch.int8, (B, L // 2), dev)
-    _check(flen, "flen", torch.int32, (B,), dev)
-    _check(rlen, "rlen", torch.int32, (B,), dev)
-    Fkm = torch.empty((B, L), dtype=torch.int32, device=dev)
-    Rkm = torch.empty((B, L), dtype=torch.int32, device=dev)
-    if B:
-        _launch(dev, "kmer_frames", plane4.data_ptr(), flen.data_ptr(),
-                rlen.data_ptr(), Fkm.data_ptr(), Rkm.data_ptr(), B, L,
-                int(num_kmers))
-    return Fkm, Rkm
-
-
-def candidates(Fkm, Rkm, O, mode, C, j0=0, Oj=None):
-    """Candidate list ([B, C+2] int16, ``mode="list"``) or bitmask
-    ([B, O//32] int32, ``mode="mask"``) on the card from the k-mer
-    frames, over plane rows [j0, j0+Oj) (twin:
-    fused2.plain_candidates)."""
-    dev = Fkm.device
-    if dev.type != "cuda":
-        raise ValueError(f"candidates runs on a CUDA device, not {dev}")
-    if mode not in _MODES:
-        raise ValueError(f"unknown candidate mode {mode!r}")
-    B, ld = Fkm.shape
-    if O % 32 or not 0 < O <= min(ld, MAX_WIDTH):
-        raise ValueError(f"O={O} must be a multiple of 32 in "
-                         f"(0, min({ld}, {MAX_WIDTH})]")
-    Oj = _row_block(O, j0, Oj)
-    if mode == "list" and not 0 < C <= O:
-        raise ValueError(f"C={C} must be in (0, {O}]")
-    _check(Fkm, "Fkm", torch.int32, (B, ld), dev)
-    _check(Rkm, "Rkm", torch.int32, (B, ld), dev)
-    if mode == "list":
-        out = torch.empty((B, C + 2), dtype=torch.int16, device=dev)
-    else:
-        out = torch.empty((B, O // 32), dtype=torch.int32, device=dev)
-    if B:
-        _launch(dev, "cand", Fkm.data_ptr(), Rkm.data_ptr(), B, ld, O,
-                int(j0), int(Oj), _MODES[mode], int(C), out.data_ptr())
-    return out

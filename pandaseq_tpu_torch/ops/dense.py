@@ -1,8 +1,8 @@
-"""Wrappers of the dense shortlist path's CUDA kernels: the N-aware
-k-mer frames (csrc/kmer_frames.cu, ``psq_cuda_kmer_frames_nt``), the
-per-diagonal counts (csrc/counts.cu), the per-diagonal LUT sums of pear
-and rdp_mle (csrc/lut_sums.cu) and the shortlist (csrc/shortlist.cu) —
-the counterpart of ``pandaseq_tpu/ops/fused2.py`` ``kmer_frames``,
+"""Wrappers of the dense shortlist path's CUDA kernels: the
+per-diagonal counts with the N-aware k-mer frames fused in
+(csrc/counts.cu), the per-diagonal LUT sums of pear and rdp_mle
+(csrc/lut_sums.cu) and the shortlist (csrc/shortlist.cu) — the
+counterpart of ``pandaseq_tpu/ops/fused2.py`` ``kmer_frames`` +
 ``plane_counts``, ``lut_plane_sums`` and ``shortlist_from_counts``.
 
 As in ``ops/cand.py``: each wrapper checks device, dtype, shape and
@@ -12,8 +12,8 @@ tensors' card with that card current (``cand._launch``) without
 synchronising, raises if the launch reports a CUDA error, and adds one
 to its launch count (``cand.launch_counts()``) where it launches and
 nowhere else. They take CUDA tensors only: the plain twins for the CPU
-are ``plain_kmer_frames_nt``, ``plain_counts``, ``plain_lut_sums`` and
-``plain_shortlist`` in ``ops/fused2.py``.
+are ``plain_counts``, ``plain_lut_sums`` and ``plain_shortlist`` in
+``ops/fused2.py``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from .fused2 import QUAL_BINS
 SCORE_KINDS = {"counts": 0, "ea_util": 1, "flash": 2, "stitch": 3,
                "pear": 4, "rdp_mle": 4}
 LUT_KINDS = {"pear": 0, "rdp_mle": 1}  # the lut_sums kernel's kinds
-MAX_SL = 32  # shared-memory shortlist slots of the shortlist kernel
+MAX_SL = 32  # the shortlist kernel keeps slot r in lane r of a warp
 
 
 def _cuda(t, name):
@@ -38,48 +38,31 @@ def _cuda(t, name):
     return dev
 
 
-def kmer_frames_nt(nt, flen, rlen, L, num_kmers):
-    """(Fkm, Rkm) [B, L] int32 on the card from the nibble-packed plane
-    nt [B, L] int8 (forward read in the low nibble) and flen/rlen [B]
-    int32, with the true N positions (twin:
-    fused2.plain_kmer_frames_nt)."""
-    dev = _cuda(nt, "kmer_frames_nt")
+def counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
+    """(m, unk, candc) [B, O] int32 on the card: the exact match, N and
+    k-mer hit counts of every diagonal t < O over plane rows [j0, j0+Oj),
+    straight from the nibble-packed plane nt [B, L] int8 (forward read
+    in the low nibble) and flen/rlen [B] int32; the k-mer frames (stored
+    forward k-mers of the whole read, N-aware) never leave the kernel
+    (twin: fused2.plain_counts)."""
+    dev = _cuda(nt, "counts")
     if not 9 <= L <= MAX_WIDTH:
         raise ValueError(f"frame width {L} must be in [9, {MAX_WIDTH}]")
+    if O % 32 or not 0 < O <= L:
+        raise ValueError(f"O={O} must be a multiple of 32 in (0, {L}]")
+    Oj = _row_block(O, j0, Oj)
     if num_kmers < 0:
         raise ValueError(f"num_kmers must be >= 0, got {num_kmers}")
     B = nt.shape[0]
     _check(nt, "nt", torch.int8, (B, L), dev)
     _check(flen, "flen", torch.int32, (B,), dev)
     _check(rlen, "rlen", torch.int32, (B,), dev)
-    Fkm = torch.empty((B, L), dtype=torch.int32, device=dev)
-    Rkm = torch.empty((B, L), dtype=torch.int32, device=dev)
-    if B:
-        _launch(dev, "kmer_frames_nt", nt.data_ptr(), flen.data_ptr(),
-                rlen.data_ptr(), Fkm.data_ptr(), Rkm.data_ptr(), B, L,
-                int(num_kmers))
-    return Fkm, Rkm
-
-
-def counts(nt, Fkm, Rkm, O, j0=0, Oj=None):
-    """(m, unk, candc) [B, O] int32 on the card: the exact match, N and
-    k-mer hit counts of every diagonal t < O over plane rows [j0, j0+Oj)
-    (twin: fused2.plain_counts)."""
-    dev = _cuda(nt, "counts")
-    B, ld = nt.shape
-    if O % 32 or not 0 < O <= min(ld, MAX_WIDTH):
-        raise ValueError(f"O={O} must be a multiple of 32 in "
-                         f"(0, min({ld}, {MAX_WIDTH})]")
-    Oj = _row_block(O, j0, Oj)
-    _check(nt, "nt", torch.int8, (B, ld), dev)
-    _check(Fkm, "Fkm", torch.int32, (B, ld), dev)
-    _check(Rkm, "Rkm", torch.int32, (B, ld), dev)
     m, unk, candc = (torch.empty((B, O), dtype=torch.int32, device=dev)
                      for _ in range(3))
     if B:
-        _launch(dev, "counts", nt.data_ptr(), Fkm.data_ptr(),
-                Rkm.data_ptr(), B, ld, O, int(j0), int(Oj), m.data_ptr(),
-                unk.data_ptr(), candc.data_ptr())
+        _launch(dev, "counts", nt.data_ptr(), flen.data_ptr(),
+                rlen.data_ptr(), B, L, O, int(j0), int(Oj), int(num_kmers),
+                m.data_ptr(), unk.data_ptr(), candc.data_ptr())
     return m, unk, candc
 
 

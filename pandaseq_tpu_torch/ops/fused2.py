@@ -24,10 +24,11 @@ Two kinds of function live here:
   They compute the same values as the JAX code (the LUT sums up to f32
   summation order), by the same method where it is exact (the kmerseen
   rank is sort-based), and never build a ``[B, L, L]`` plane. The
-  ``plain_*`` functions mirror the CUDA kernels of ``ops/cand.py`` and
-  ``ops/dense.py`` argument for argument (``PLAIN_OPS`` against
+  ``plain_*`` functions of ``PLAIN_OPS`` mirror the CUDA kernels of
+  ``ops/cand.py`` and ``ops/dense.py`` argument for argument (against
   ``device_ops(cuda)``), so the kernels can be held against them on the
-  card, and the row-block forms (``j0``, ``Oj``) serve the op-sharded
+  card; ``plain_kmer_frames(_nt)`` and ``plain_candidates`` are their
+  pieces. The row-block forms (``j0``, ``Oj``) serve the op-sharded
   steps of ``parallel/shard.py``. ``cand_mask_join`` is the port of the
   JAX package's sorted join (K9), the CPU's mask step under
   ``PANDASEQ_TPU_JOIN``;
@@ -458,17 +459,19 @@ def _cand_list(candc, O, C):
 
 
 def plain_kmer_frames(plane4, flen, rlen, L, num_kmers):
-    """Plain twin of the ``kmer_frames`` kernel: (Fkm, Rkm) [B, L] int32
-    from the packed plane, with every base taken as non-N."""
+    """(Fkm, Rkm) [B, L] int32 from the packed plane, with every base
+    taken as non-N: the frames that the ``cand_join`` kernel builds in
+    shared memory."""
     cf, cr, nonn = _unpack2bit(plane4, L)
     return kmer_frames_codes(cf, nonn, cr, nonn, flen, rlen, L, num_kmers)
 
 
 def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C, j0=0, Oj=None):
-    """Plain twin of the ``cand`` kernel: the candidate list ([B, C+2]
-    int16) in ``"list"`` mode, the candidate bitmask ([B, O//32] int32)
-    in ``"mask"`` mode, over plane rows [j0, j0+Oj). The masks of
-    disjoint row blocks OR to the full plane's mask."""
+    """The candidate list ([B, C+2] int16) in ``"list"`` mode, the
+    candidate bitmask ([B, O//32] int32) in ``"mask"`` mode, from the
+    k-mer frames over plane rows [j0, j0+Oj): the second half of
+    ``plain_candidates_join``. The masks of disjoint row blocks OR to the
+    full plane's mask."""
     candc = plane_cand(Fkm, Rkm, O, j0, Oj)
     if mode == "list":
         return _cand_list(candc, O, C)
@@ -571,18 +574,20 @@ def _nibbles(nt):
 
 
 def plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers):
-    """Plain twin of the ``kmer_frames_nt`` kernel: (Fkm, Rkm) [B, L]
-    int32 from the nibble-packed plane ``nt`` [B, L] int8, with the
-    true N positions."""
+    """(Fkm, Rkm) [B, L] int32 from the nibble-packed plane ``nt`` [B, L]
+    int8, with the true N positions: the frames that the ``counts`` and
+    ``cand_join`` kernels build in shared memory."""
     nt_f, nt_r = _nibbles(nt)
     return kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers)
 
 
-def plain_counts(nt, Fkm, Rkm, O, j0=0, Oj=None):
-    """Plain twin of the ``counts`` kernel: (m, unk, candc) [B, O]
-    int32 from the nibble-packed plane and the k-mer frames, over plane
-    rows [j0, j0+Oj); the counts of disjoint row blocks add up to the
-    full plane's."""
+def plain_counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
+    """Plain version of the ``counts`` kernel: (m, unk, candc) [B, O]
+    int32 from the nibble-packed plane ``nt`` [B, L] int8 — its N-aware
+    k-mer frames (``plain_kmer_frames_nt``), then ``plane_counts`` over
+    plane rows [j0, j0+Oj); the counts of disjoint row blocks add up to
+    the full plane's."""
+    Fkm, Rkm = plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers)
     nt_f, nt_r = _nibbles(nt)
     return plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0, Oj)
 
@@ -618,14 +623,13 @@ class DeviceOps(NamedTuple):
     """One implementation of each device op, with the kernel wrappers'
     names and arguments."""
     candidates_join: Callable
-    kmer_frames_nt: Callable
     counts: Callable
     lut_sums: Callable
     shortlist: Callable
 
 
-PLAIN_OPS = DeviceOps(plain_candidates_join, plain_kmer_frames_nt,
-                      plain_counts, plain_lut_sums, plain_shortlist)
+PLAIN_OPS = DeviceOps(plain_candidates_join, plain_counts, plain_lut_sums,
+                      plain_shortlist)
 
 
 def device_ops(dev) -> DeviceOps:
@@ -635,8 +639,8 @@ def device_ops(dev) -> DeviceOps:
     dev = torch.device(dev)
     if dev.type == "cuda":
         from . import cand, dense
-        return DeviceOps(cand.candidates_join, dense.kmer_frames_nt,
-                         dense.counts, dense.lut_sums, dense.shortlist)
+        return DeviceOps(cand.candidates_join, dense.counts, dense.lut_sums,
+                         dense.shortlist)
     if dev.type == "cpu":
         return PLAIN_OPS
     raise ValueError(f"no device step for device {dev}")
@@ -708,8 +712,8 @@ def _shortlist_core(nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
                     pmatch, pmismatch, nn, nn_term, band, lut_match,
                     lut_mismatch):
     """The dense shortlist on the ops of the plane's device (see
-    assemble_shortlist): frames, counts, the LUT sums for the LUT kinds,
-    then the shortlist. The qual planes and LUTs serve only the LUT
+    assemble_shortlist): the counts (k-mer frames fused in), the LUT
+    sums for the LUT kinds, then the shortlist. The qual planes and LUTs serve only the LUT
     kinds."""
     if O is None:
         O = L
@@ -717,8 +721,7 @@ def _shortlist_core(nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
     if band is None:
         band = BAND_LUT if lut else BAND_COUNTS
     ops = device_ops(nt_pack.device)
-    Fkm, Rkm = ops.kmer_frames_nt(nt_pack, flen, rlen, L, num_kmers)
-    m, unk, candc = ops.counts(nt_pack, Fkm, Rkm, O)
+    m, unk, candc = ops.counts(nt_pack, flen, rlen, L, O, num_kmers)
     lutsum = None
     if lut:
         if lut_match is None or lut_mismatch is None:

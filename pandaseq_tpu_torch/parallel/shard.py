@@ -10,11 +10,13 @@ over "op"); here the split is written out over a grid of
   rows when ``B % dp == 0``; otherwise the whole batch runs on the mesh's
   first device, as the JAX engine's unsharded dispatch does. Each row's
   share is uploaded to the row's first device.
-* ``op`` cells within a dp row: every cell computes the full k-mer frames
-  (their windows cross row blocks) and then its block of overlap-plane
-  rows ``[j0, j0+Oj)``, ``Oj = O / op``, through the row-block forms of
-  the kernels (``counts``, ``cand_join``, ``lut_sums``;
-  ``fused2.device_ops``); ``cand_join`` ranks the whole read itself.
+* ``op`` cells within a dp row: every cell computes its block of
+  overlap-plane rows ``[j0, j0+Oj)``, ``Oj = O / op``, through the
+  row-block forms of the kernels (``counts``, ``cand_join``,
+  ``lut_sums``; ``fused2.device_ops``). The k-mer windows and the rank
+  cross row blocks, so ``counts`` and ``cand_join`` each rank the whole
+  read themselves: at ``num_kmers > 0`` every cell repeats the decode,
+  sort and probes of the pair, and only the hits it keeps are its own.
 * the reduction ``psum`` does in JAX: partial int32 counts and partial
   f32 LUT sums are copied to the row's first device and added in op
   order, partial candidate masks are ORed, and the shortlist runs once
@@ -192,15 +194,16 @@ def _sharded_body(devs, nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
                   pmatch, pmismatch, nn_term, band, lut_tables):
     """One dp row of the shortlist step: each op cell counts its row
     block (and sums its LUT terms), the partials add up on the row's
-    first device, and the shortlist runs there once."""
+    first device, and the shortlist runs there once. The bit-parallel
+    match and N counts split over the cells; the k-mer hits' sort-join
+    (``num_kmers > 0``) runs whole in every cell."""
     lut = algo_kind in fused2.LUT_KINDS
     flen, rlen, fo, ro = _int32(flen, rlen, fo, ro)
     parts = []
     for dev, j0, Oj in _blocks(devs, O):
         ops = fused2.device_ops(dev)
         nt, fl, rl = (x.to(dev) for x in (nt_pack, flen, rlen))
-        Fkm, Rkm = ops.kmer_frames_nt(nt, fl, rl, L, num_kmers)
-        part = ops.counts(nt, Fkm, Rkm, O, j0, Oj)
+        part = ops.counts(nt, fl, rl, L, O, num_kmers, j0, Oj)
         if lut:
             part += (ops.lut_sums(nt, fr_q.to(dev), rr_q.to(dev), fl, rl,
                                   O, algo_kind, *lut_tables(dev), nn_term, j0,

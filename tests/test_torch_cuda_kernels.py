@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: equal to their plain PyTorch
 versions and to native.cand_mask (the exact host twin): the sort-join
 ``cand_join`` on the packed and the nibble plane, at num_kmers 0-3, in
-list and mask form and over row blocks, and the other kernels, over the
-full plane
+list and mask form and over row blocks, and the other kernels (``counts``
+with its k-mer hits from the same join, ``shortlist`` also on the edge
+rows of tests/shortlist_rows.py), over the full plane
 and over the row blocks of the op-sharded steps (the LUT sums of pear /
 rdp_mle bit for bit too), and the engine on the card equal to the engine
 on the CPU, on the sparse path and the dense -k 0 path, on one device
@@ -27,6 +28,7 @@ from pandaseq_tpu_torch import oracle
 from pandaseq_tpu_torch.assembler import BatchAssembler
 from pandaseq_tpu_torch.io import native
 from pandaseq_tpu_torch.ops import cand, dense, fused2
+from tests.shortlist_rows import ZERO_TIE_ROW, edge_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -61,8 +63,7 @@ def _batch(n=200):
 def _check(dev, plane, flen, rlen, Lb, O, k, nt=False):
     """cand_join against its plain version on the card, in list and mask
     form, over the full plane and the row blocks of op 2 and 4 (whose
-    masks OR to the full plane's); on the packed plane also the old
-    kmer_frames + cand pair against theirs. Returns the full mask."""
+    masks OR to the full plane's). Returns the full mask."""
     plane = torch.from_numpy(plane).to(dev)
     flen = torch.from_numpy(np.ascontiguousarray(flen, np.int32)).to(dev)
     rlen = torch.from_numpy(np.ascontiguousarray(rlen, np.int32)).to(dev)
@@ -80,13 +81,6 @@ def _check(dev, plane, flen, rlen, Lb, O, k, nt=False):
                 *args, "mask", C, j0, Oj, nt=nt)), (op, j0, nt)
             acc |= m
         assert torch.equal(acc, got)
-    if not nt:
-        Fk, Rk = cand.kmer_frames(plane, flen, rlen, Lb, k)
-        Fp, Rp = fused2.plain_kmer_frames(plane, flen, rlen, Lb, k)
-        assert torch.equal(Fk, Fp) and torch.equal(Rk, Rp)
-        for mode in ("list", "mask"):
-            assert torch.equal(cand.candidates(Fk, Rk, O, mode, C),
-                               fused2.plain_candidates(Fp, Rp, O, mode, C))
     torch.cuda.synchronize()
     return got.cpu().numpy()
 
@@ -174,9 +168,9 @@ def _nt_planes(rng, B, L):
 
 @pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 320)])
 def test_dense_kernels_equal_twins(dev, Lb, O):
-    """kmer_frames_nt, counts and shortlist against their twins on the
-    card, exactly, for every num_kmers and score kind, with maxoverlap
-    0 and > 0."""
+    """counts and shortlist against their twins on the card, exactly, for
+    every num_kmers and score kind, with maxoverlap 0 and > 0; the
+    counts' k-mer hits set the bits of cand_join's mask."""
     rng = np.random.default_rng(Lb)
     B = 256
     nt, flen, rlen = _nt_planes(rng, B, Lb)
@@ -185,12 +179,12 @@ def test_dense_kernels_equal_twins(dev, Lb, O):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     nt, flen, rlen, fo, ro = map(t, (nt, flen, rlen, fo, ro))
     for k in (0, 1, 2, 3):
-        Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, k)
-        Fp, Rp = fused2.plain_kmer_frames_nt(nt, flen, rlen, Lb, k)
-        assert torch.equal(Fk, Fp) and torch.equal(Rk, Rp)
-        got = dense.counts(nt, Fk, Rk, O)
-        for g, w in zip(got, fused2.plain_counts(nt, Fp, Rp, O)):
+        got = dense.counts(nt, flen, rlen, Lb, O, k)
+        for g, w in zip(got, fused2.plain_counts(nt, flen, rlen, Lb, O, k)):
             assert torch.equal(g, w)
+        assert torch.equal(fused2.pack_bits16(got[2] != 0, O),
+                           cand.candidates_join(nt, flen, rlen, Lb, O, k,
+                                                "mask", C, nt=True))
         for kind in fused2.COUNT_KINDS:
             for maxoverlap in (0, 200):
                 kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
@@ -200,6 +194,31 @@ def test_dense_kernels_equal_twins(dev, Lb, O):
                 want = fused2.plain_shortlist(*got, flen, rlen, fo, ro,
                                               **kw)
                 assert torch.equal(sl, want), (k, kind, maxoverlap)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("O", [128, 256, 384, 512, 1024])
+def test_shortlist_edge_rows_equal_plain(dev, O):
+    """The warp-per-pair shortlist against its plain version on the rows
+    a warp design gets wrong first (tests/shortlist_rows.py: all -inf,
+    -0.0 tying +0.0, equal scores across lanes and words, fewer finite
+    scores than SL, a stitch wrap), for every score kind, with
+    maxoverlap 0 and > 0, at every per-lane slot count of the kernel."""
+    rng = np.random.default_rng(O)
+    r = {k: torch.from_numpy(v).to(dev) for k, v in edge_rows(rng, O).items()}
+    ints = [r[k] for k in ("m", "unk", "candc", "flen", "rlen", "fo", "ro")]
+    for kind in dense.SCORE_KINDS:
+        lut = kind in dense.LUT_KINDS
+        for maxoverlap in (0, 150):
+            kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
+                      algo_kind=kind, pmatch=-0.0105, pmismatch=-2.36,
+                      nn=-1.386294, band=0.05 if lut else 0.01,
+                      lutsum=r["lutsum"] if lut else None)
+            got = dense.shortlist(*ints, **kw)
+            assert torch.equal(got, fused2.plain_shortlist(*ints, **kw)), (
+                kind, maxoverlap)
+            if lut:  # the -0.0 at offset 4 ties +0.0 and goes first
+                assert int(got[ZERO_TIE_ROW, 0]) & 1023 == 4
     torch.cuda.synchronize()
 
 
@@ -237,8 +256,8 @@ def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
             p for _, _, p in asm.emit_stream(reader, depth=2,
                                              threaded=True))
         assert cand.launch_counts() == dict(
-            dict.fromkeys(cand.KERNELS, 0), kmer_frames_nt=launches,
-            counts=launches, shortlist=launches)
+            dict.fromkeys(cand.KERNELS, 0), counts=launches,
+            shortlist=launches)
     assert out["cpu"] and out["cuda"] == out["cpu"]
 
 
@@ -287,8 +306,7 @@ def test_lut_sums_equal_twin(dev, Lb, O):
                                              kind, tm, tmm, nn, j0, Oj)
                 assert torch.equal(got.view(torch.int32),
                                    want.view(torch.int32)), (kind, op, j0)
-        Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, 2)
-        counts = dense.counts(nt, Fk, Rk, O)
+        counts = dense.counts(nt, flen, rlen, Lb, O, 2)
         for maxoverlap in (0, 200):
             kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
                       algo_kind=kind, pmatch=0.0, pmismatch=0.0,
@@ -311,37 +329,36 @@ def test_lut_sums_equal_twin(dev, Lb, O):
 
 @pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 384)])
 def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
-    """counts, cand and cand_join (nibble plane) over the row blocks of
-    op 2 and 4: each block equals its twin, the blocks' counts add up to
-    the full-plane kernel's and their masks OR to its mask, exactly."""
+    """counts and cand_join (nibble plane) over the row blocks of op 2
+    and 4, at num_kmers 0 and 2: each block equals its twin, the blocks'
+    counts add up to the full-plane kernel's and their masks OR to its
+    mask, exactly."""
     rng = np.random.default_rng(O)
     nt, flen, rlen = _nt_planes(rng, 256, Lb)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     nt, flen, rlen = map(t, (nt, flen, rlen))
-    Fk, Rk = dense.kmer_frames_nt(nt, flen, rlen, Lb, 2)
-    full = dense.counts(nt, Fk, Rk, O)
-    full_mask = cand.candidates(Fk, Rk, O, "mask", C)
-    assert torch.equal(full_mask, cand.candidates_join(
-        nt, flen, rlen, Lb, O, 2, "mask", C, nt=True))
-    for op in (2, 4):
-        Oj = O // op
-        sums = [torch.zeros_like(x) for x in full]
-        mask = torch.zeros_like(full_mask)
-        for j0 in range(0, O, Oj):
-            got = dense.counts(nt, Fk, Rk, O, j0, Oj)
-            for s, g, w in zip(sums, got,
-                               fused2.plain_counts(nt, Fk, Rk, O, j0, Oj)):
-                assert torch.equal(g, w)
-                s += g
-            m = cand.candidates(Fk, Rk, O, "mask", C, j0, Oj)
-            assert torch.equal(m, fused2.plain_candidates(
-                Fk, Rk, O, "mask", C, j0, Oj))
-            assert torch.equal(m, cand.candidates_join(
-                nt, flen, rlen, Lb, O, 2, "mask", C, j0, Oj, nt=True))
-            mask |= m
-        for s, f in zip(sums, full):
-            assert torch.equal(s, f)
-        assert torch.equal(mask, full_mask)
+    for k in (0, 2):
+        full = dense.counts(nt, flen, rlen, Lb, O, k)
+        full_mask = cand.candidates_join(nt, flen, rlen, Lb, O, k, "mask",
+                                         C, nt=True)
+        for op in (2, 4):
+            Oj = O // op
+            sums = [torch.zeros_like(x) for x in full]
+            mask = torch.zeros_like(full_mask)
+            for j0 in range(0, O, Oj):
+                got = dense.counts(nt, flen, rlen, Lb, O, k, j0, Oj)
+                for s, g, w in zip(sums, got, fused2.plain_counts(
+                        nt, flen, rlen, Lb, O, k, j0, Oj)):
+                    assert torch.equal(g, w)
+                    s += g
+                m = cand.candidates_join(nt, flen, rlen, Lb, O, k, "mask",
+                                         C, j0, Oj, nt=True)
+                assert torch.equal(m, fused2.plain_candidates_join(
+                    nt, flen, rlen, Lb, O, k, "mask", C, j0, Oj, nt=True))
+                mask |= m
+            for s, f in zip(sums, full):
+                assert torch.equal(s, f)
+            assert torch.equal(mask, full_mask)
     torch.cuda.synchronize()
 
 
@@ -349,8 +366,8 @@ def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
 def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
     """A (dp=2, op=2) mesh on one card through the engine gives the CPU
     engine's bytes; each 64-pair batch splits, so each launches
-    cand_join, or the frames and counts, once per mesh cell (4) and the
-    shortlist once per dp row (2); the last batch of 8 splits too."""
+    cand_join, or counts, once per mesh cell (4) and the shortlist once
+    per dp row (2); the last batch of 8 splits too."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     cfg = oracle.OracleConfig(num_kmers=num_kmers)
@@ -366,8 +383,7 @@ def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
             p for _, _, p in asm.emit_stream(reader, depth=2,
                                              threaded=True))
         if device == "cuda":
-            path = (("cand_join",) if num_kmers
-                    else ("kmer_frames_nt", "counts", "shortlist"))
+            path = ("cand_join",) if num_kmers else ("counts", "shortlist")
             want = dict.fromkeys(cand.KERNELS, 0)
             for name in path:
                 want[name] = 4 * (2 if name == "shortlist" else 4)

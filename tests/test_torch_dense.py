@@ -1,7 +1,8 @@
 """The dense -k 0 shortlist path of the PyTorch port against the JAX
 package on the CPU: the N-aware k-mer frames (``kmer_frames``),
-``plane_counts``, ``assemble_candidates_nt``, ``shortlist_from_counts``
-and ``assemble_shortlist_nt``.
+``plane_counts``, the ``counts`` kernel's plain version (the two in
+one), ``assemble_candidates_nt``, ``shortlist_from_counts`` (also on
+edge rows: tests/shortlist_rows.py) and ``assemble_shortlist_nt``.
 
 Tolerances: the frames, counts and candidate masks are integers, equal
 bit for bit. Of the shortlist, ``besto32``, ``examined`` and ``n_band``
@@ -24,6 +25,7 @@ import torch
 from pandaseq_tpu import tables
 from pandaseq_tpu.ops import fused2 as jf
 from pandaseq_tpu_torch.ops import fused2 as tf
+from tests.shortlist_rows import TIES, ZERO_TIE_ROW, ZEROS, edge_rows
 from tests.test_torch_fused2 import _eq, _t
 
 torch.set_num_threads(1)
@@ -79,22 +81,54 @@ def test_kmer_frames_nt_equals_jax(L, num_kmers):
 @pytest.mark.parametrize("L,O,j0,Oj", [(64, 64, 0, None), (256, 128, 0, None),
                                        (256, 256, 64, 64)])
 def test_plane_counts_equals_jax(L, O, j0, Oj):
-    """Whole-plane counts, and a row block (the op-axis slice)."""
+    """Whole-plane counts, and a row block (the op-axis slice), of the
+    counts kernel's plain version at num_kmers 2 against the JAX
+    package's kmer_frames + plane_counts."""
     rng = np.random.default_rng(O + j0)
     fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
-    Fkm, Rkm = tf.plain_kmer_frames_nt(_t(nt), _t(flen), _t(rlen), L, 2)
-    want = _jax_counts(jnp.asarray(fwd.astype(np.int32)),
-                       jnp.asarray(rev.astype(np.int32)),
-                       jnp.asarray(Fkm.numpy()), jnp.asarray(Rkm.numpy()),
-                       O, j0, Oj)
-    if j0 == 0 and Oj is None:
-        got = tf.plain_counts(_t(nt), Fkm, Rkm, O)
-    else:
-        got = tf.plane_counts(_t(fwd.astype(np.int32)),
-                              _t(rev.astype(np.int32)), Fkm, Rkm, O, j0, Oj)
-    for g, w in zip(got, want):
+    got = tf.plain_counts(_t(nt), _t(flen), _t(rlen), L, O, 2, j0, Oj)
+    for g, w in zip(got, _jax_counts_of(fwd, rev, flen, rlen, L, O, 2, j0,
+                                        Oj)):
         _eq(g, w)
     assert got[0].numpy().any() and got[1].numpy().any()
+
+
+def _jax_counts_of(fwd, rev, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
+    f, r = (jnp.asarray(x.astype(np.int32)) for x in (fwd, rev))
+    Fkm, Rkm = _jax_frames(f, r, jnp.asarray(flen), jnp.asarray(rlen), L,
+                           num_kmers)
+    return _jax_counts(f, r, Fkm, Rkm, O, j0, Oj)
+
+
+@pytest.mark.parametrize("num_kmers", [0, 1, 2, 3])
+@pytest.mark.parametrize("L", [64, 96, 128])
+def test_counts_equals_jax(L, num_kmers):
+    """The counts kernel's plain version (nibble plane and lengths in,
+    frames inside) against the JAX package's kmer_frames + plane_counts,
+    exactly: the full plane and each row block of op 2 and 4, whose
+    counts add up to the full plane's. Rows with N runs, pads, repeats
+    over two bases, and flen / rlen shorter than L."""
+    rng = np.random.default_rng(100 * L + num_kmers)
+    fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
+    args = (_t(nt), _t(flen), _t(rlen), L, L, num_kmers)
+    full = tf.plain_counts(*args)
+    for g, w in zip(full, _jax_counts_of(fwd, rev, flen, rlen, L, L,
+                                         num_kmers)):
+        _eq(g, w)
+    for op in (2, 4):
+        Oj = L // op
+        sums = [torch.zeros_like(x) for x in full]
+        for j0 in range(0, L, Oj):
+            got = tf.plain_counts(*args, j0, Oj)
+            want = _jax_counts_of(fwd, rev, flen, rlen, L, L, num_kmers, j0,
+                                  Oj)
+            for acc, g, w in zip(sums, got, want):
+                _eq(g, w)
+                acc += g
+        for acc, f in zip(sums, full):
+            _eq(acc, f.numpy())
+    assert full[0].numpy().any() and full[1].numpy().any()
+    assert full[2].numpy().any() == (num_kmers > 0)
 
 
 @pytest.mark.parametrize("pallas", ["", "interpret"])
@@ -160,15 +194,22 @@ def _near_tie_rows(want):
     return ((d > 0) & (d <= tol) & (s[:, 1:] > -3e38)).any(axis=1)
 
 
-def _check_shortlist(got, want):
+def _check_shortlist(got, want, zero_ties=()):
     """The tolerances of the module docstring; returns the largest f32
-    difference."""
+    difference. On the rows ``zero_ties``, whose top scores tie at -0.0
+    and +0.0, the order of the shipped offsets may differ: JAX's top_k
+    puts +0.0 first (a total order), the port compares floats, so -0.0
+    ties +0.0 and the smaller offset goes first."""
     got = got.numpy()
     want = np.asarray(want)
     assert got.shape == want.shape and got.dtype == want.dtype
     np.testing.assert_array_equal(got[:, 2 * SL:2 * SL + 3],
                                   want[:, 2 * SL:2 * SL + 3])
     near = _near_tie_rows(want)
+    for r in zero_ties:
+        np.testing.assert_array_equal(np.sort(got[r, :SL]),
+                                      np.sort(want[r, :SL]))
+        near[r] = True
     np.testing.assert_array_equal(got[~near, :SL], want[~near, :SL])
     cols = np.r_[SL:2 * SL, 2 * SL + 3]
     gf = got[:, cols].view(np.float32).astype(np.float64)
@@ -242,3 +283,49 @@ def test_lut_kinds_raise():
         nt, q, q, lens, lens, lens, lens)), L=64, algo_kind="rdp_mle",
         lut_match=luts[0], lut_mismatch=luts[1])
     _eq(got, want)
+
+
+EDGE_KINDS = ["counts", "ea_util", "flash", "stitch", "pear"]
+
+
+@pytest.mark.parametrize("maxoverlap", [0, 150])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_shortlist_edge_rows_equal_jax(kind, maxoverlap):
+    """plain_shortlist against the JAX package's shortlist_from_counts on
+    the edge rows of tests/shortlist_rows.py, for the four count kinds
+    and the LUT kind (pear: the scores are the given LUT sums)."""
+    rng = np.random.default_rng(EDGE_KINDS.index(kind) + maxoverlap)
+    O = 256
+    r = edge_rows(rng, O)
+    lut = kind == "pear"
+    kw = dict(O=O, SL=SL, minoverlap=3, maxoverlap=maxoverlap,
+              algo_kind=kind, pmatch=PM, pmismatch=PMM, nn=NN,
+              band=tf.BAND_LUT if lut else tf.BAND_COUNTS)
+    ints = [r[k] for k in ("m", "unk", "candc")]
+    lens = [r[k] for k in ("flen", "rlen", "fo", "ro")]
+    want = _jax_shortlist(*map(jnp.asarray, ints),
+                          jnp.asarray(r["lutsum"]) if lut else None,
+                          *map(jnp.asarray, lens), **kw)
+    got = tf.plain_shortlist(*map(_t, ints + lens), **kw,
+                             lutsum=_t(r["lutsum"]) if lut else None)
+    _check_shortlist(got, want, (ZERO_TIE_ROW,) if lut else ())
+    g = got.numpy()
+    n = 2 * SL
+    assert g[0, n] == 1 and g[0, n + 1] == 0  # empty range: first offset
+    assert (g[0, :SL] == 0).all() and (g[0, SL:n] == np.float32(
+        -3e38).view(np.int32)).all()
+    assert g[6, n + 1] > 0  # hits only below minoverlap: whole range
+    assert (g[5, 3:SL] == 0).all() and g[5, n + 1] == 3  # 3 candidates
+    if kind in ("flash", "pear"):  # row 1: every candidate -inf
+        assert g[1, n] == 1 and g[1, n + 1] > 0 and g[1, n + 2] == 0
+        assert (g[1, :SL] == 0).all()
+    if kind == "stitch":  # the first wrapped offset wins; n_band is 1
+        assert g[2, n] == 51 and g[2, n + 2] == 1
+    if lut:
+        # -0.0 ties +0.0: the five zeros in ascending offset, then -1.0
+        assert list(g[ZERO_TIE_ROW, :SL] & 1023) == \
+            [x + 1 for x in sorted(ZEROS)] + [3, 5, 6]
+        assert g[ZERO_TIE_ROW, n] == 4 and g[ZERO_TIE_ROW, n + 2] == 5
+        # ten equal scores across lanes and words: ascending offsets
+        assert list(g[4, :SL] & 1023) == [x + 1 for x in TIES[:SL]]
+        assert g[4, n + 2] == len(TIES)

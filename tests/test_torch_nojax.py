@@ -177,15 +177,12 @@ def test_cuda_request_raises_without_card(no_card, monkeypatch):
     plane = torch.zeros((2, 64), dtype=torch.int8)
     lens = torch.full((2,), 100, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        cand.kmer_frames(plane, lens, lens, 128, 2)
-    frames = torch.zeros((2, 128), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        cand.candidates(frames, frames, 128, "list", 4)
+        cand.candidates_join(plane, lens, lens, 128, 128, 2, "list", 4)
     nt = torch.zeros((2, 128), dtype=torch.int8)
-    with pytest.raises(ValueError, match="CUDA"):
-        dense.kmer_frames_nt(nt, lens, lens, 128, 0)
-    with pytest.raises(ValueError, match="CUDA"):
-        dense.counts(nt, frames, frames, 128)
+    for k in (0, 2):
+        with pytest.raises(ValueError, match="CUDA"):
+            dense.counts(nt, lens, lens, 128, 128, k)
+    frames = torch.zeros((2, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         dense.shortlist(frames, frames, frames, lens, lens, lens, lens,
                         O=128, SL=8, minoverlap=2, maxoverlap=0,
