@@ -19,33 +19,36 @@ phase is caught.
    card's rate for their type; see WORK):
    - cand_join, the candidate search of every path, exactly: on the
      4-bit packed plane and on the nibble plane with N, at num_kmers in
-     {0, 1, 2, 3}, list and mask, over the full plane and the row blocks
-     of op 2 and 4 (ORed against the full plane); on reads generated by
+     {0, 1, 2, 3}, list and mask, over the whole plane (a mesh runs it
+     once per dp row: phase 4); on reads generated by
      tests/golden/make_data.py --fast (through make_batch and psq_pack4),
      on generated reads with N, and on random planes with low-entropy
      rows; the bitmasks also against native.cand_mask, the exact host
      twin;
    - the dense path's counts (the k-mer frames fused in) exactly, at
      num_kmers in {0, 1, 2, 3}, over the full plane and the row blocks of
-     op 2 and 4 (summed against the full plane), its k-mer hits against
-     cand_join's mask; shortlist exactly or within SHORTLIST_ULPS on its
+     op 2 and 4 (summed against the full plane), with the hits of each
+     block's rows and with the mesh's hit rows (every row in the first
+     block, none in the others), its k-mer hits against cand_join's
+     mask; shortlist exactly or within SHORTLIST_ULPS on its
      f32 columns for each of the four count kinds; on generated reads
      with N bases and B-cliffs (make_data.py without --fast) and on
      random nibble planes with N runs and low-entropy rows; the
      shortlist of every score kind also on the edge rows of
      tests/shortlist_rows.py; assemble_candidates_nt on the card against
      native.cand_mask at num_kmers in {1, 2, 3};
-   - counts (num_kmers 0 and 2) and shortlist timed beside the recorded
-     times of the kernels they replaced (REPLACED_MS) on the card those
-     were taken on
-     (REFERENCE_CARD): the script exits nonzero if counts at num_kmers 0
-     or shortlist takes more than MAX_RATIO of them at any width; on
-     another card it prints "not compared";
+   - counts (num_kmers 0 and 2), shortlist and lut_sums timed beside the
+     recorded times of the kernels they replaced (REPLACED_MS) on the
+     card those were taken on (REFERENCE_CARD): the script exits nonzero
+     if counts at num_kmers 0, shortlist or lut_sums (pear) takes more
+     than MAX_RATIO of them at any width; on another card it prints "not
+     compared";
    - lut_sums (the pear / rdp_mle LUT sums) against its twin bit for bit
      (0 ulp), over the full plane and the row blocks of op 2 and 4, on
      the generated reads with N (their own qual planes, stale tails
-     included) and on random nibble planes with random quals; the LUT
-     kind of the shortlist kernel against its twin.
+     included), on random nibble planes with random quals and on the
+     edge rows of tests/lut_rows.py; the LUT kind of the shortlist
+     kernel against its twin.
 3. The port CLI end to end against the native host engine
    (PANDASEQ_TPU_ENGINE=host; the cuda runs pin the device engine with
    PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
@@ -70,9 +73,13 @@ phase is caught.
    (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
    phase 3, STAT counters equal to the host engine's through the same
    emit_stream loop (which, with the single-device cuda engine, is also
-   timed there), and the launches the split implies (cand_join, or
-   counts, once per mesh cell of a split batch, shortlist once per dp
-   row, an unsplit batch once). Then the pear / rdp_mle library path:
+   timed there), and the launches the split implies (a split batch
+   launches cand_join once per dp row, not once per mesh cell: the
+   sort-join runs once per dp row; counts once per mesh cell and the
+   shortlist once per dp row; an unsplit batch each once: over the
+   500,000 pairs' 62 batches, all split, the (2, 2) mesh launches
+   cand_join 124 times, counts 248 and shortlist 124). Then the pear /
+   rdp_mle library path:
    make_sharded_step on the (2, 2) mesh at B=8192, Lb=O=256 against the
    single-device assemble_shortlist: examined equal, and the shortlist
    sets equal on every row whose SL-th and SL+1-th scores are apart by
@@ -125,11 +132,14 @@ SOURCES = {"cand_join": "pandaseq_tpu_torch/csrc/cand_join.cu",
 OPS = (2, 4)  # op widths of the row-block checks
 # the recorded CUDA-event times (ms) of the kernels that counts
 # (num_kmers 0: a per-cell counts kernel) and shortlist (one block per
-# pair) replaced, at B=8192 and Lb=O, on REFERENCE_CARD (PERF.md, kernel
+# pair) replaced, and of lut_sums before its redesign (pear, one thread
+# per diagonal), at B=8192 and Lb=O, on REFERENCE_CARD (PERF.md, kernel
 # table); each new kernel takes at most MAX_RATIO of them there
 REPLACED_MS = {("counts", 256): 0.2102, ("counts", 384): 0.4467,
-          ("counts", 512): 0.7617, ("shortlist", 256): 0.1105,
-          ("shortlist", 384): 0.1213, ("shortlist", 512): 0.1312}
+               ("counts", 512): 0.7617, ("shortlist", 256): 0.1105,
+               ("shortlist", 384): 0.1213, ("shortlist", 512): 0.1312,
+               ("lut_sums", 256): 0.2579, ("lut_sums", 384): 0.5492,
+               ("lut_sums", 512): 0.9368}
 REFERENCE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 MAX_RATIO = 0.5
 LUT_ALGOS = ("pear", "rdp_mle")
@@ -172,9 +182,14 @@ WORK = {}
 # emission (its binary search); counts COUNTS_WORD_OPS per 32-cell word
 # it walks, plus cand_join's sort and searches at num_kmers > 0;
 # shortlist ~10 per offset for its score, and per lane and round of the
-# top SL one compare per slot and 5 shuffle steps of 3
+# top SL one compare per slot and 5 shuffle steps of 3; lut_sums
+# LUT_CELL_OPS per cell it walks (lut_cells: forward pads included, which
+# it skips)
 DESIGN_OPS = {}
 COUNTS_WORD_OPS = 22  # 6 funnel shifts, 14 logic operations, 2 popcounts
+# a match test, a select of the half, an address add, the table load
+# and the f32 add
+LUT_CELL_OPS = 5
 
 
 def say(*a):
@@ -299,11 +314,11 @@ def say_times(times, names, Lb):
                100 * bms / ms))
 
 
-def against_replaced(times, Lb, card):
-    """counts (num_kmers 0) and shortlist against the replaced kernels'
-    times on REFERENCE_CARD: exits if either takes more than MAX_RATIO
-    of it; on another card prints "not compared"."""
-    for name in DENSE:
+def against_replaced(times, names, Lb, card):
+    """The kernels ``names`` against the replaced kernels' times on
+    REFERENCE_CARD: exits if one takes more than MAX_RATIO of it; on
+    another card prints "not compared"."""
+    for name in names:
         ms = times[(name, Lb)][0]
         old = REPLACED_MS[(name, Lb)]
         if card != REFERENCE_CARD:
@@ -328,6 +343,15 @@ def row_blocks(O, op):
 def live_cells(O):
     """Cells (j, i), j + i < O, of the plane, summed over the pairs."""
     return B * O * (O + 1) // 2
+
+
+def lut_cells(O):
+    """Cells the lut_sums kernel walks over the pairs: a thread's block
+    of R diagonals at t0 (R = 4 below O = 512, else 8: csrc/lut_sums.cu)
+    walks rows 0 .. t0 + R - 1, R at a time, for each of its R
+    diagonals."""
+    R = 4 if O < 512 else 8
+    return B * sum((t0 // R + 1) * R * R for t0 in range(0, O, R))
 
 
 def counts_words(O):
@@ -360,9 +384,8 @@ def join_ops(Lb, rlen, O):
 
 
 def join_check(plane, fl, rl, Lb, k, nt, what, errs):
-    """cand_join against plain_candidates_join, list and mask, over the
-    full plane and the row blocks of op 2 and 4 (ORed == full), exactly;
-    returns the full mask and list."""
+    """cand_join against plain_candidates_join, list and mask, exactly;
+    returns the mask and list."""
     import torch
 
     from pandaseq_tpu_torch.ops import cand, fused2
@@ -374,17 +397,6 @@ def join_check(plane, fl, rl, Lb, k, nt, what, errs):
         errs["cand_join"] = max(errs["cand_join"], exact(
             out[mode], fused2.plain_candidates_join(*args, mode, C, nt=nt),
             "%s cand_join %s" % (what, mode)))
-    for op in OPS:
-        acc = torch.zeros_like(out["mask"])
-        for j0, Oj in row_blocks(O, op):
-            got = cand.candidates_join(*args, "mask", C, j0, Oj, nt=nt)
-            errs["cand_join"] = max(errs["cand_join"], exact(
-                got, fused2.plain_candidates_join(*args, "mask", C, j0, Oj,
-                                                  nt=nt),
-                "%s cand_join rows [%d, %d)" % (what, j0, j0 + Oj)))
-            acc |= got
-        exact(acc, out["mask"], "%s cand_join op=%d OR vs the full plane"
-              % (what, op))
     torch.cuda.synchronize()
     return out["mask"], out["list"]
 
@@ -427,11 +439,10 @@ def sparse_kernels(Lb, batch, rng, errs, times):
                 host = torch.from_numpy(native.cand_mask(
                     batch, np.arange(B, dtype=np.int64), k, O))
                 exact(mask.cpu(), host, what + " cand_join vs cand_mask")
-            say("%s: cand_join == plain%s (list, mask, row blocks of op "
-                "%s), %d rows with candidates, %d with count > %d"
+            say("%s: cand_join == plain%s (list, mask), %d rows with "
+                "candidates, %d with count > %d"
                 % (what, " == native.cand_mask" if tag == "reads" and k
-                   else "", "/".join(map(str, OPS)),
-                   int((lst[:, 0] > 0).sum()), over, C))
+                   else "", int((lst[:, 0] > 0).sum()), over, C))
         if tag == "reads":
             times[("cand_join", Lb)] = paired_ms(
                 lambda: fused2.plain_candidates_join(plane, fl, rlen, Lb, O,
@@ -529,8 +540,9 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
                 errs["shortlist"] = max(errs["shortlist"], err)
                 errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
                 bands.append(int((sl[:, 2 * SL + 2] > SL).sum()))
-            say("%s: counts == plain (row blocks of op %s too, k-mer hits "
-                "== cand_join's mask); shortlist of %s == plain, rows with "
+            say("%s: counts == plain (row blocks of op %s too, with their "
+                "own and the mesh's hit rows; k-mer hits == cand_join's "
+                "mask); shortlist of %s == plain, rows with "
                 "n_band > %d: %s" % (what, "/".join(map(str, OPS)),
                                      "/".join(params), SL, bands))
         if tag == "reads":
@@ -582,7 +594,7 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
                 slots + 15))
             say_times(times, ("counts", "counts k=2", "counts rows",
                               "shortlist"), Lb)
-            against_replaced(times, Lb, card)
+            against_replaced(times, DENSE, Lb, card)
     shortlist_edges(Lb, params, errs)
 
 
@@ -622,23 +634,29 @@ def shortlist_edges(O, params, errs):
 
 def counts_blocks(nt, fl, rl, Lb, k, full, what, errs):
     """counts over the row blocks of op 2 and 4 against the twin, and
-    summed against the full-plane kernel, exactly."""
+    summed against the full-plane kernel, exactly: with the k-mer hits
+    of each block's rows, and with the mesh's hit rows (every row in the
+    first block, none in the others)."""
     import torch
 
     from pandaseq_tpu_torch.ops import dense, fused2
     O = Lb
     for op in OPS:
-        sums = [torch.zeros_like(x) for x in full]
-        for j0, Oj in row_blocks(O, op):
-            got = dense.counts(nt, fl, rl, Lb, O, k, j0, Oj)
-            want = fused2.plain_counts(nt, fl, rl, Lb, O, k, j0, Oj)
-            for acc, g, w in zip(sums, got, want):
-                errs["counts"] = max(errs["counts"], exact(
-                    g, w, "%s counts rows [%d, %d)" % (what, j0, j0 + Oj)))
-                acc += g
-        for acc, f in zip(sums, full):
-            exact(acc, f, "%s counts op=%d sum vs the full plane"
-                  % (what, op))
+        for mesh_hits in (False, True):
+            sums = [torch.zeros_like(x) for x in full]
+            for j0, Oj in row_blocks(O, op):
+                hits = (0, O if j0 == 0 else 0) if mesh_hits else None
+                got = dense.counts(nt, fl, rl, Lb, O, k, j0, Oj, hits)
+                want = fused2.plain_counts(nt, fl, rl, Lb, O, k, j0, Oj,
+                                           hits)
+                for acc, g, w in zip(sums, got, want):
+                    errs["counts"] = max(errs["counts"], exact(
+                        g, w, "%s counts rows [%d, %d) hit rows %s"
+                        % (what, j0, j0 + Oj, hits)))
+                    acc += g
+            for acc, f in zip(sums, full):
+                exact(acc, f, "%s counts op=%d sum vs the full plane"
+                      % (what, op))
 
 
 def _lut_params():
@@ -670,23 +688,29 @@ def ulps(got, want, what):
     return 0
 
 
-def lut_kernels(Lb, batch, rng, luts, errs, times):
+def lut_kernels(Lb, batch, rng, luts, errs, times, card):
     """lut_sums against its twin (full plane and row blocks, bit for bit)
     and the LUT kind of the shortlist against its twin, on generated
-    reads with N and their qual planes and on random planes."""
+    reads with N and their qual planes, on random planes and on the edge
+    rows of tests/lut_rows.py; lut_sums timed on the reads and held to
+    its time before the redesign."""
     import numpy as np
     import torch
 
     from pandaseq_tpu_torch.ops import dense, fused2
+    from tests.lut_rows import lut_edge_rows
 
     dev = torch.device(DEVICE)
     O = Lb
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     nt_x, fl_x, rl_x = _nt_random(rng, Lb)
+    fwd_e, rev_e, fq_e, rq_e, fl_e, rl_e = lut_edge_rows(rng, B, Lb)
     cases = [("reads", batch.nt_packed()[:, :Lb], batch.fwd_q[:, :Lb],
               batch.rev_q[:, :Lb], batch.flen, batch.rlen),
              ("random", nt_x, rng.integers(-3, 50, (B, Lb)).astype(np.int8),
-              rng.integers(-3, 50, (B, Lb)).astype(np.int8), fl_x, rl_x)]
+              rng.integers(-3, 50, (B, Lb)).astype(np.int8), fl_x, rl_x),
+             ("edge rows", (fwd_e | (rev_e << 4)).view(np.int8), fq_e, rq_e,
+              fl_e, rl_e)]
     zeros = t(np.zeros(B, np.int32))
     for tag, *arrays in cases:
         nt, fq, rq, fl, rl = map(t, arrays)
@@ -723,7 +747,9 @@ def lut_kernels(Lb, batch, rng, luts, errs, times):
                 lambda: dense.lut_sums(*args))
             WORK[("lut_sums", Lb)] = (B * (3 * Lb + 8 + 4 * O), 0,
                                       live_cells(O) - B * O)
+            DESIGN_OPS[("lut_sums", Lb)] = LUT_CELL_OPS * lut_cells(O)
             say_times(times, ("lut_sums",), Lb)
+            against_replaced(times, ("lut_sums",), Lb, card)
 
 
 def phase_kernels(tmp, errs, card):
@@ -753,7 +779,7 @@ def phase_kernels(tmp, errs, card):
                        errs, times)
         batch_n = make_batch(list(fq.read_pairs(*with_n)), Lb)
         dense_kernels(Lb, batch_n, rng, params, errs, times, card)
-        lut_kernels(Lb, batch_n, rng, luts, errs, times)
+        lut_kernels(Lb, batch_n, rng, luts, errs, times, card)
         if Lb == 256:
             batch_256 = batch_n
     return times, batch_256, luts
@@ -961,15 +987,14 @@ def emit_run(asm, f1, f2, out_path):
 
 def mesh_launches(sizes, dp, op, path):
     """The launches a (dp, op) mesh implies: a batch of B pairs splits
-    over dp when B % dp == 0; a split batch launches the frames and cand /
-    counts once per mesh cell (once per dp row when op == 1) and the
-    shortlist once per dp row; an unsplit batch launches each once."""
+    over dp when B % dp == 0; a split batch launches counts once per mesh
+    cell, and cand_join (the sort-join) and the shortlist once per dp
+    row; an unsplit batch launches each once."""
     want = dict.fromkeys(KERNELS, 0)
     for n in sizes:
         rows = dp if n % dp == 0 else 1
-        cells = rows * op if n % dp == 0 else 1
         for name in path:
-            want[name] += rows if name == "shortlist" else cells
+            want[name] += rows * op if name == "counts" else rows
     return want
 
 

@@ -1070,8 +1070,9 @@ class BatchAssembler:
     def _dispatch_op(self, st, batch, cut, sparse, inputs, fo32, ro32):
         """Overlap-plane-row ("op")-sharded dispatch for a (dp, op) mesh
         (pandaseq_tpu/assembler.py:1381): the sharded steps of
-        parallel/shard.py add exact integer partial diagonal sums (OR the
-        partial masks), so the output equals the single-device step's.
+        parallel/shard.py add exact integer partial diagonal sums (the
+        candidate step searches once per dp row), so the output equals
+        the single-device step's.
         The sparse step returns the candidate mask, not the list."""
         cfg = self.cfg
         Lb, O = st["Lb"], st["O"]

@@ -27,7 +27,7 @@
 // 2-4. The sort-join of join.cuh (shared with counts.cu): forward keys
 //    kmer << 10 | (L-1-p), a bitonic sort that ranks the whole read, and
 //    the reverse emissions' probes (8 <= i < min(rlen, O)). Each hit
-//    (stored source j in [j0, jend), t = j+i < O) sets bit t of an
+//    (stored source j, t = j+i < O) sets bit t of an
 //    O/32-word shared mask (a shared atomicOr; hits are a few per pair).
 //    num_kmers = 0 stores nothing, any num_kmers >= 1 is exact (the JAX
 //    join unrolls only up to 2).
@@ -48,8 +48,8 @@
 // frames (2 KB a pair at L=256) stay in shared memory, and an O(L^2)
 // rank scan and O(O^2/2) hit scan become an O(L log^2 L) sort and
 // O(L log L) probes.
-// A row block [j0, jend) only filters the bits set: a mesh op cell
-// repeats the decode, sort and probes of the whole pair.
+// It always searches the whole plane: a (dp, op) mesh runs it once per
+// dp row (parallel/shard.py), not once per op cell.
 //
 // Occupancy: a block has Lpad/2 threads (64 to 512) and 6.2 KB of static
 // shared memory at most (keys 4 KB, codes 2 KB, mask 128 B), so an SM
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
 cand_join_kernel(const uint8_t *__restrict__ plane,
                  const int32_t *__restrict__ flen,
                  const int32_t *__restrict__ rlen, int L, int Lpad, int O,
-                 int j0, int jend, int num_kmers, int mode, int C,
+                 int num_kmers, int mode, int C,
                  void *__restrict__ out) {
     __shared__ uint32_t keys[MAX_L];
     __shared__ uint8_t cf[MAX_L];
@@ -110,8 +110,8 @@ cand_join_kernel(const uint8_t *__restrict__ plane,
     join::forward_keys<NT>(cf, L, Lpad, fmax, num_kmers, keys, tid, T);
     __syncthreads();
     join::bitonic_sort(keys, Lpad, tid, T);
-    join::probes<NT>(cr, keys, L, Lpad, O, min(rlen[b], O), num_kmers, j0,
-                     jend, tid, T, [&](int t) {
+    join::probes<NT>(cr, keys, L, Lpad, O, min(rlen[b], O), num_kmers, 0,
+                     O, tid, T, [&](int t) {
                          atomicOr(&mask[t >> 5], 1u << (t & 31));
                      });
     __syncthreads();
@@ -148,8 +148,8 @@ cand_join_kernel(const uint8_t *__restrict__ plane,
 
 template <bool NT>
 int launch(const void *plane, const void *flen, const void *rlen, long B,
-           int L, int O, int j0, int Oj, int num_kmers, int mode, int C,
-           void *out, void *stream) {
+           int L, int O, int num_kmers, int mode, int C, void *out,
+           void *stream) {
     int Lpad = 1;
     while (Lpad < L) Lpad <<= 1;
     const int threads = Lpad / 2 < 64 ? 64
@@ -158,8 +158,7 @@ int launch(const void *plane, const void *flen, const void *rlen, long B,
         cand_join_kernel<NT><<<(unsigned) B, threads, 0,
                                (cudaStream_t) stream>>>(
             (const uint8_t *) plane, (const int32_t *) flen,
-            (const int32_t *) rlen, L, Lpad, O, j0, j0 + Oj, num_kmers,
-            mode, C, out);
+            (const int32_t *) rlen, L, Lpad, O, num_kmers, mode, C, out);
     return (int) cudaGetLastError();
 }
 
@@ -167,18 +166,18 @@ int launch(const void *plane, const void *flen, const void *rlen, long B,
 
 extern "C" int psq_cuda_cand_join(const void *plane4, const void *flen,
                                   const void *rlen, long B, int L, int O,
-                                  int j0, int Oj, int num_kmers, int mode,
-                                  int C, void *out, void *stream) {
-    return launch<false>(plane4, flen, rlen, B, L, O, j0, Oj, num_kmers,
-                         mode, C, out, stream);
+                                  int num_kmers, int mode, int C, void *out,
+                                  void *stream) {
+    return launch<false>(plane4, flen, rlen, B, L, O, num_kmers, mode, C,
+                         out, stream);
 }
 
 extern "C" int psq_cuda_cand_join_nt(const void *nt, const void *flen,
                                      const void *rlen, long B, int L, int O,
-                                     int j0, int Oj, int num_kmers, int mode,
-                                     int C, void *out, void *stream) {
-    return launch<true>(nt, flen, rlen, B, L, O, j0, Oj, num_kmers, mode, C,
-                        out, stream);
+                                     int num_kmers, int mode, int C,
+                                     void *out, void *stream) {
+    return launch<true>(nt, flen, rlen, B, L, O, num_kmers, mode, C, out,
+                        stream);
 }
 
 extern "C" const char *psq_cuda_error_string(int err) {

@@ -10,15 +10,19 @@
 // then plane_counts).
 //
 // For pair b and diagonal t < O, over the live triangle j + i = t with
-// j, i < O (forward position j, reverse position i; offset o = t+1),
-// restricted to the plane rows j in [j0, jend) (the row block of one op
-// shard, parallel/shard.py; j0 = 0, jend = O is the whole plane, and
-// the counts of disjoint blocks add up to the whole plane's):
-//   m     = #{ (f & r) != 0 and not N }
-//   unk   = #{ f or r is N (0x0F), and neither is a pad (0) }
-//   candc = #{ Fkm[j] == Rkm[i] }: stored forward k-mer j (the first
-//           num_kmers occurrences in raw order) equal to the reverse
-//           k-mer emitted at i
+// j, i < O (forward position j, reverse position i; offset o = t+1):
+//   m     = #{ (f & r) != 0 and not N }, over the bit rows j in
+//           [j0, jend)
+//   unk   = #{ f or r is N (0x0F), and neither is a pad (0) }, over the
+//           bit rows
+//   candc = #{ Fkm[j] == Rkm[i] }, over the hit rows j in [h0, hend):
+//           stored forward k-mer j (the first num_kmers occurrences in
+//           raw order) equal to the reverse k-mer emitted at i
+// Either range [0, O) is the whole plane, and the counts of disjoint
+// ranges add up to the whole plane's. An op cell of a (dp, op) mesh
+// (parallel/shard.py) counts its block of bit rows; one cell of each dp
+// row counts the hits of every row and the others none, so the
+// sort-join runs once per dp row (an empty hit range skips it).
 // f / r are the low / high nibbles of the nibble plane nt [B, L] int8
 // (bytes read unsigned); flen / rlen [B] int32. Outputs m, unk, candc
 // [B, O] int32, exact.
@@ -31,14 +35,15 @@
 //    (bit x = O-1-i, the ballot's word bit-reversed), plus one zero
 //    word. Then diagonal t pairs forward bit j with reverse bit
 //    j + (O-1-t): one funnel shift of two neighbouring words aligns 32
-//    cells. With num_kmers > 0 the 2-bit k-mer codes of all L positions
-//    go to shared memory as well.
+//    cells. With k-mer hits to count, the 2-bit k-mer codes of all L
+//    positions go to shared memory as well.
 // 2. candc: the sort-join of join.cuh (shared with cand_join.cu): forward
 //    keys, a bitonic sort that ranks the whole read, and probes by the
-//    reverse emissions; each hit (j in the row block, t = j+i < O) is a
+//    reverse emissions; each hit (j in the hit rows, t = j+i < O) is a
 //    shared atomicAdd on its diagonal. That is exact: each reverse
 //    emission walks at most num_kmers stored keys of its run. At
-//    num_kmers = 0 nothing is stored: no keys, no sort, candc = 0.
+//    num_kmers = 0, or with no hit rows, nothing is stored: no keys, no
+//    sort, candc = 0.
 // 3. m and unk, bit-parallel: for each 32-bit word of j on diagonal t,
 //      N = (Fn | Rn) & Fv & Rv
 //      M = ((Fa&Ra) | (Fc&Rc) | (Fg&Rg) | (Ft&Rt)) & ~N
@@ -52,7 +57,7 @@
 // operations, 3 per 32 live cells of a bit-parallel compare, take less.
 // This design does ~22 integer operations per word of 32 cells (6
 // funnel shifts, 14 logic operations, 2 popcounts) and 18 broadcast
-// shared loads, plus cand_join's sort when num_kmers > 0.
+// shared loads, plus cand_join's sort where it counts k-mer hits.
 //
 // Occupancy: Lpad/2 threads (64 to 512, Lpad the next power of two >= L)
 // and 11.8 KB of static shared memory (keys 4 KB, hit counts 4 KB, codes
@@ -80,7 +85,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
 counts_kernel(const uint8_t *__restrict__ nt,
               const int32_t *__restrict__ flen,
               const int32_t *__restrict__ rlen, int L, int Lpad, int O,
-              int j0, int jend, int num_kmers, int32_t *__restrict__ m_out,
+              int j0, int jend, int h0, int hend, int num_kmers,
+              int32_t *__restrict__ m_out,
               int32_t *__restrict__ unk_out,
               int32_t *__restrict__ cand_out) {
     __shared__ uint32_t keys[join::MAX_L];
@@ -96,6 +102,7 @@ counts_kernel(const uint8_t *__restrict__ nt,
     const int lane = tid & 31;
     const int W = O / 32;
     const uint8_t *row = nt + b * L;
+    const bool with_hits = num_kmers > 0 && h0 < hend;
 
     // 1. decode: a warp takes 32 positions at a time (base is the same
     //    for its 32 lanes, so every ballot sees the whole warp)
@@ -103,7 +110,7 @@ counts_kernel(const uint8_t *__restrict__ nt,
         const int p = base + lane;
         const unsigned v = p < L ? row[p] : 0u;
         const unsigned f = v & 0x0Fu, r = v >> 4;
-        if (num_kmers > 0 && p < L) {
+        if (with_hits && p < L) {
             cf[p] = join::nt_code(f);
             cr[p] = join::nt_code(r);
         }
@@ -126,14 +133,14 @@ counts_kernel(const uint8_t *__restrict__ nt,
     __syncthreads();
 
     // 2. k-mer hits per diagonal (join.cuh)
-    if (num_kmers > 0) {
+    if (with_hits) {
         const int fmax = min(flen[b] - 9, L - 9);
         join::forward_keys<true>(cf, L, Lpad, fmax, num_kmers, keys, tid,
                                  T);
         __syncthreads();
         join::bitonic_sort(keys, Lpad, tid, T);
         join::probes<true>(cr, keys, L, Lpad, O, min(rlen[b], O),
-                           num_kmers, j0, jend, tid, T,
+                           num_kmers, h0, hend, tid, T,
                            [&](int t) { atomicAdd(&hits[t], 1); });
     }
 
@@ -180,8 +187,9 @@ counts_kernel(const uint8_t *__restrict__ nt,
 
 extern "C" int psq_cuda_counts(const void *nt, const void *flen,
                                const void *rlen, long B, int L, int O,
-                               int j0, int Oj, int num_kmers, void *m,
-                               void *unk, void *cand, void *stream) {
+                               int j0, int Oj, int h0, int Oh,
+                               int num_kmers, void *m, void *unk,
+                               void *cand, void *stream) {
     int Lpad = 1;
     while (Lpad < L) Lpad <<= 1;
     const int threads = Lpad / 2 < 64 ? 64
@@ -189,7 +197,8 @@ extern "C" int psq_cuda_counts(const void *nt, const void *flen,
     if (B > 0)
         counts_kernel<<<(unsigned) B, threads, 0, (cudaStream_t) stream>>>(
             (const uint8_t *) nt, (const int32_t *) flen,
-            (const int32_t *) rlen, L, Lpad, O, j0, j0 + Oj, num_kmers,
+            (const int32_t *) rlen, L, Lpad, O, j0, j0 + Oj, h0, h0 + Oh,
+            num_kmers,
             (int32_t *) m, (int32_t *) unk, (int32_t *) cand);
     return (int) cudaGetLastError();
 }

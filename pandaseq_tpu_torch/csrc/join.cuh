@@ -17,7 +17,8 @@
 // * probes: each reverse emission i (8 <= i < imax, for NT no N in
 //   i-8..i) binary-searches its k-mer's run and walks its first
 //   num_kmers keys; each stored source j in [j0, jend) with t = j+i < O
-//   is a hit, handed to hit(t). num_kmers = 0 stores nothing; any
+//   is a hit, handed to hit(t) (cand_join takes every row; counts the
+//   hit rows its caller names). num_kmers = 0 stores nothing; any
 //   num_kmers >= 1 is exact.
 
 #pragma once

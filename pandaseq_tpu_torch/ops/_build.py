@@ -96,12 +96,10 @@ def load() -> ctypes.CDLL:
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
             F = ctypes.c_float
             sigs = {
-                "psq_cuda_cand_join": [P, P, P, L, I, I, I, I, I, I, I, P,
-                                       P],
-                "psq_cuda_cand_join_nt": [P, P, P, L, I, I, I, I, I, I, I,
-                                          P, P],
-                "psq_cuda_counts": [P, P, P, L, I, I, I, I, I, P, P, P,
-                                    P],
+                "psq_cuda_cand_join": [P, P, P, L, I, I, I, I, I, P, P],
+                "psq_cuda_cand_join_nt": [P, P, P, L, I, I, I, I, I, P, P],
+                "psq_cuda_counts": [P, P, P, L, I, I, I, I, I, I, I, P, P,
+                                    P, P],
                 "psq_cuda_shortlist": [P, P, P, P, P, P, P, P, L, I, I, I,
                                        I, I, F, F, F, F, P, P],
                 "psq_cuda_lut_sums": [P, P, P, P, P, L, I, I, I, P, P, F,

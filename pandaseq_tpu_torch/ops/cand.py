@@ -53,17 +53,6 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _row_block(O, j0, Oj):
-    """Oj (None: the rest of the plane) after checking that the plane
-    rows [j0, j0+Oj) lie in [0, O)."""
-    if Oj is None:
-        Oj = O - j0
-    if not 0 <= j0 < j0 + Oj <= O:
-        raise ValueError(f"row block [{j0}, {j0}+{Oj}) is not inside "
-                         f"[0, {O})")
-    return Oj
-
-
 def _launch(dev, kernel, *args, entry=None) -> None:
     """Launch ``kernel`` through its entry point ``psq_cuda_<entry>``
     (``entry`` defaults to the kernel's name) with ``args`` and the
@@ -79,11 +68,10 @@ def _launch(dev, kernel, *args, entry=None) -> None:
     _LAUNCHES[kernel] += 1
 
 
-def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, j0=0,
-                    Oj=None, nt=False):
+def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, nt=False):
     """Candidate list ([B, C+2] int16, ``mode="list"``) or bitmask
-    ([B, O//32] int32, ``mode="mask"``) on the card, over plane rows
-    [j0, j0+Oj), straight from the 4-bit packed plane4 [B, L/2] int8
+    ([B, O//32] int32, ``mode="mask"``) on the card, over the whole
+    plane, straight from the 4-bit packed plane4 [B, L/2] int8
     (every base taken as non-N) or, with ``nt``, the nibble-packed plane
     [B, L] int8 with the true N positions; flen/rlen [B] int32 (plain
     version: fused2.plain_candidates_join)."""
@@ -100,7 +88,6 @@ def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, j0=0,
                          f"(0, {MAX_WIDTH}]")
     if O % 32 or not 0 < O <= L:
         raise ValueError(f"O={O} must be a multiple of 32 in (0, {L}]")
-    Oj = _row_block(O, j0, Oj)
     if mode == "list" and not 0 < C <= O:
         raise ValueError(f"C={C} must be in (0, {O}]")
     if num_kmers < 0:
@@ -115,8 +102,8 @@ def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, j0=0,
         out = torch.empty((B, O // 32), dtype=torch.int32, device=dev)
     if B:
         _launch(dev, "cand_join", plane.data_ptr(), flen.data_ptr(),
-                rlen.data_ptr(), B, L, O, int(j0), int(Oj), int(num_kmers),
-                _MODES[mode], int(C), out.data_ptr(),
+                rlen.data_ptr(), B, L, O, int(num_kmers), _MODES[mode],
+                int(C), out.data_ptr(),
                 entry="cand_join_nt" if nt else None)
     return out
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .cand import MAX_WIDTH, _check, _launch, _row_block
+from .cand import MAX_WIDTH, _check, _launch
 from .fused2 import QUAL_BINS
 
 # score kinds of the shortlist kernel; pear and rdp_mle both score the
@@ -31,6 +31,18 @@ LUT_KINDS = {"pear": 0, "rdp_mle": 1}  # the lut_sums kernel's kinds
 MAX_SL = 32  # the shortlist kernel keeps slot r in lane r of a warp
 
 
+def _row_block(O, j0, Oj, empty=False):
+    """Oj (None: the rest of the plane) after checking that the plane
+    rows [j0, j0+Oj) lie in [0, O) and, unless ``empty``, are not
+    empty."""
+    if Oj is None:
+        Oj = O - j0
+    if not (0 <= j0 <= j0 + Oj <= O and (empty or Oj > 0)):
+        raise ValueError(f"row block [{j0}, {j0}+{Oj}) is not inside "
+                         f"[0, {O})")
+    return Oj
+
+
 def _cuda(t, name):
     dev = t.device
     if dev.type != "cuda":
@@ -38,19 +50,23 @@ def _cuda(t, name):
     return dev
 
 
-def counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
-    """(m, unk, candc) [B, O] int32 on the card: the exact match, N and
-    k-mer hit counts of every diagonal t < O over plane rows [j0, j0+Oj),
-    straight from the nibble-packed plane nt [B, L] int8 (forward read
-    in the low nibble) and flen/rlen [B] int32; the k-mer frames (stored
-    forward k-mers of the whole read, N-aware) never leave the kernel
-    (twin: fused2.plain_counts)."""
+def counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None, hit_rows=None):
+    """(m, unk, candc) [B, O] int32 on the card: the exact match and N
+    counts of every diagonal t < O over plane rows [j0, j0+Oj), and its
+    k-mer hits over the rows ``hit_rows`` = (h0, Oh), [h0, h0+Oh), which
+    may be empty (default: the same rows), straight from the
+    nibble-packed plane nt [B, L] int8 (forward read in the low nibble)
+    and flen/rlen [B] int32; the k-mer frames (stored forward k-mers of
+    the whole read, N-aware) never leave the kernel, and with no hit rows
+    the kernel skips its sort-join (twin: fused2.plain_counts)."""
     dev = _cuda(nt, "counts")
     if not 9 <= L <= MAX_WIDTH:
         raise ValueError(f"frame width {L} must be in [9, {MAX_WIDTH}]")
     if O % 32 or not 0 < O <= L:
         raise ValueError(f"O={O} must be a multiple of 32 in (0, {L}]")
     Oj = _row_block(O, j0, Oj)
+    h0, Oh = (j0, Oj) if hit_rows is None else hit_rows
+    Oh = _row_block(O, h0, Oh, empty=True)
     if num_kmers < 0:
         raise ValueError(f"num_kmers must be >= 0, got {num_kmers}")
     B = nt.shape[0]
@@ -61,8 +77,9 @@ def counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
                      for _ in range(3))
     if B:
         _launch(dev, "counts", nt.data_ptr(), flen.data_ptr(),
-                rlen.data_ptr(), B, L, O, int(j0), int(Oj), int(num_kmers),
-                m.data_ptr(), unk.data_ptr(), candc.data_ptr())
+                rlen.data_ptr(), B, L, O, int(j0), int(Oj), int(h0), int(Oh),
+                int(num_kmers), m.data_ptr(), unk.data_ptr(),
+                candc.data_ptr())
     return m, unk, candc
 
 

@@ -28,10 +28,10 @@ Two kinds of function live here:
   ``ops/cand.py`` and ``ops/dense.py`` argument for argument (against
   ``device_ops(cuda)``), so the kernels can be held against them on the
   card; ``plain_kmer_frames(_nt)`` and ``plain_candidates`` are their
-  pieces. The row-block forms (``j0``, ``Oj``) serve the op-sharded
-  steps of ``parallel/shard.py``. ``cand_mask_join`` is the port of the
-  JAX package's sorted join (K9), the CPU's mask step under
-  ``PANDASEQ_TPU_JOIN``;
+  pieces. The row-block forms (``j0``, ``Oj``; ``plain_counts``' hit
+  rows) serve the op-sharded steps of ``parallel/shard.py``.
+  ``cand_mask_join`` is the port of the JAX package's sorted join (K9),
+  the CPU's mask step under ``PANDASEQ_TPU_JOIN``;
 * the public entry points ``assemble_candidates_list_packed4``,
   ``assemble_candidates_packed4``, ``assemble_candidates_nt``,
   ``assemble_shortlist_nt``, ``assemble_shortlist`` and
@@ -466,13 +466,11 @@ def plain_kmer_frames(plane4, flen, rlen, L, num_kmers):
     return kmer_frames_codes(cf, nonn, cr, nonn, flen, rlen, L, num_kmers)
 
 
-def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C, j0=0, Oj=None):
+def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C):
     """The candidate list ([B, C+2] int16) in ``"list"`` mode, the
     candidate bitmask ([B, O//32] int32) in ``"mask"`` mode, from the
-    k-mer frames over plane rows [j0, j0+Oj): the second half of
-    ``plain_candidates_join``. The masks of disjoint row blocks OR to the
-    full plane's mask."""
-    candc = plane_cand(Fkm, Rkm, O, j0, Oj)
+    k-mer frames: the second half of ``plain_candidates_join``."""
+    candc = plane_cand(Fkm, Rkm, O)
     if mode == "list":
         return _cand_list(candc, O, C)
     if mode == "mask":
@@ -481,14 +479,14 @@ def plain_candidates(Fkm, Rkm, O, mode, C=CAND_LIST_C, j0=0, Oj=None):
 
 
 def plain_candidates_join(plane, flen, rlen, L, O, num_kmers, mode,
-                          C=CAND_LIST_C, j0=0, Oj=None, nt=False):
+                          C=CAND_LIST_C, nt=False):
     """Plain version of the ``cand_join`` kernel: the frames of the
     4-bit packed plane (``plain_kmer_frames``) or, with ``nt``, of the
     nibble plane with N (``plain_kmer_frames_nt``), then the candidate
-    list or mask over plane rows [j0, j0+Oj) (``plain_candidates``)."""
+    list or mask of the whole plane (``plain_candidates``)."""
     frames = plain_kmer_frames_nt if nt else plain_kmer_frames
     Fkm, Rkm = frames(plane, flen, rlen, L, num_kmers)
-    return plain_candidates(Fkm, Rkm, O, mode, C, j0, Oj)
+    return plain_candidates(Fkm, Rkm, O, mode, C)
 
 
 def cand_mask_join(cf, nonn_f, cr, nonn_r, flen, rlen, L, O, num_kmers):
@@ -581,15 +579,21 @@ def plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers):
     return kmer_frames(nt_f, nt_r, flen, rlen, L, num_kmers)
 
 
-def plain_counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None):
+def plain_counts(nt, flen, rlen, L, O, num_kmers, j0=0, Oj=None,
+                 hit_rows=None):
     """Plain version of the ``counts`` kernel: (m, unk, candc) [B, O]
     int32 from the nibble-packed plane ``nt`` [B, L] int8 — its N-aware
     k-mer frames (``plain_kmer_frames_nt``), then ``plane_counts`` over
-    plane rows [j0, j0+Oj); the counts of disjoint row blocks add up to
-    the full plane's."""
+    plane rows [j0, j0+Oj), with the k-mer hits over the rows
+    ``hit_rows`` = (h0, Oh) instead where given (``plane_cand``; Oh may
+    be 0); the counts of disjoint row blocks add up to the full
+    plane's."""
     Fkm, Rkm = plain_kmer_frames_nt(nt, flen, rlen, L, num_kmers)
     nt_f, nt_r = _nibbles(nt)
-    return plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0, Oj)
+    m, unk, candc = plane_counts(nt_f, nt_r, Fkm, Rkm, O, j0, Oj)
+    if hit_rows is not None:
+        candc = plane_cand(Fkm, Rkm, O, *hit_rows)
+    return m, unk, candc
 
 
 def plain_lut_sums(nt, fr_q, rr_q, flen, rlen, O, algo_kind, lut_match,

@@ -10,18 +10,19 @@ over "op"); here the split is written out over a grid of
   rows when ``B % dp == 0``; otherwise the whole batch runs on the mesh's
   first device, as the JAX engine's unsharded dispatch does. Each row's
   share is uploaded to the row's first device.
-* ``op`` cells within a dp row: every cell computes its block of
-  overlap-plane rows ``[j0, j0+Oj)``, ``Oj = O / op``, through the
-  row-block forms of the kernels (``counts``, ``cand_join``,
-  ``lut_sums``; ``fused2.device_ops``). The k-mer windows and the rank
-  cross row blocks, so ``counts`` and ``cand_join`` each rank the whole
-  read themselves: at ``num_kmers > 0`` every cell repeats the decode,
-  sort and probes of the pair, and only the hits it keeps are its own.
+* ``op`` cells within a dp row: in the shortlist step every cell
+  computes its block of overlap-plane rows ``[j0, j0+Oj)``, ``Oj = O /
+  op``, through the row-block forms of ``counts`` (matches and N) and
+  ``lut_sums`` (``fused2.device_ops``). The k-mer windows and the rank
+  cross row blocks, so the k-mer hits' sort-join is not split: the
+  row's first cell counts the hits of every row (``counts``' hit rows)
+  and the other cells none, and the candidate step runs ``cand_join``
+  once per dp row, on the row's first device, over the whole plane.
 * the reduction ``psum`` does in JAX: partial int32 counts and partial
   f32 LUT sums are copied to the row's first device and added in op
-  order, partial candidate masks are ORed, and the shortlist runs once
-  per dp row on that device. Integer partials add up to the full plane
-  bit for bit; the f32 LUT sums only up to summation order.
+  order, and the shortlist runs once per dp row on that device. Integer
+  partials add up to the full plane bit for bit; the f32 LUT sums only
+  up to summation order.
 
 A step's result is gathered on the mesh's first device. A device may
 appear more than once: the CPU tests build the JAX tests' 8-device mesh
@@ -36,7 +37,6 @@ machine yet.
 from __future__ import annotations
 
 import functools
-import operator
 from typing import NamedTuple
 
 import numpy as np
@@ -177,11 +177,11 @@ def _blocks(devs, O):
     return [(d, k * Oj, Oj) for k, d in enumerate(devs)]
 
 
-def _reduce(parts, dev, op):
-    """``op`` over the op cells' partials, in op order, on ``dev``."""
+def _sum(parts, dev):
+    """The op cells' partials added in op order on ``dev``."""
     total = parts[0].to(dev)
     for p in parts[1:]:
-        total = op(total, p.to(dev))
+        total = total + p.to(dev)
     return total
 
 
@@ -192,24 +192,25 @@ def _int32(*xs):
 def _sharded_body(devs, nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
                   SL, minoverlap, maxoverlap, num_kmers, algo_kind,
                   pmatch, pmismatch, nn_term, band, lut_tables):
-    """One dp row of the shortlist step: each op cell counts its row
-    block (and sums its LUT terms), the partials add up on the row's
-    first device, and the shortlist runs there once. The bit-parallel
-    match and N counts split over the cells; the k-mer hits' sort-join
-    (``num_kmers > 0``) runs whole in every cell."""
+    """One dp row of the shortlist step: each op cell counts the matches
+    and N of its row block (and sums its LUT terms), the first cell also
+    the k-mer hits of every row (the sort-join runs once per dp row),
+    the partials add up on the row's first device, and the shortlist
+    runs there once."""
     lut = algo_kind in fused2.LUT_KINDS
     flen, rlen, fo, ro = _int32(flen, rlen, fo, ro)
     parts = []
     for dev, j0, Oj in _blocks(devs, O):
         ops = fused2.device_ops(dev)
         nt, fl, rl = (x.to(dev) for x in (nt_pack, flen, rlen))
-        part = ops.counts(nt, fl, rl, L, O, num_kmers, j0, Oj)
+        part = ops.counts(nt, fl, rl, L, O, num_kmers, j0, Oj,
+                          hit_rows=(0, O if j0 == 0 else 0))
         if lut:
             part += (ops.lut_sums(nt, fr_q.to(dev), rr_q.to(dev), fl, rl,
                                   O, algo_kind, *lut_tables(dev), nn_term, j0,
                                   Oj),)
         parts.append(part)
-    sums = [_reduce(p, devs[0], operator.add) for p in zip(*parts)]
+    sums = [_sum(p, devs[0]) for p in zip(*parts)]
     return fused2.device_ops(devs[0]).shortlist(
         *sums[:3], flen, rlen, fo, ro, O=O, SL=SL, minoverlap=minoverlap,
         maxoverlap=maxoverlap, algo_kind=algo_kind, pmatch=pmatch,
@@ -218,21 +219,15 @@ def _sharded_body(devs, nt_pack, fr_q, rr_q, flen, rlen, fo, ro, *, L, O,
 
 def _sharded_cand_body(devs, nt_pack, flen, rlen, *, L, O, num_kmers,
                        nt=True):
-    """One dp row of the candidate step: each op cell runs the candidate
-    search over the whole read (the k-mer windows and the rank cross row
-    blocks) and keeps its row block's candidate mask, and the masks OR
-    together on the row's first device (``pack_bits16(psum(candc) !=
-    0)`` of the JAX body). The row block only filters the bits set: each
-    cell repeats the join's decode, sort and probes, so op > 1 splits no
-    work of this step."""
-    flen, rlen = _int32(flen, rlen)
-    masks = []
-    for dev, j0, Oj in _blocks(devs, O):
-        plane, fl, rl = (x.to(dev) for x in (nt_pack, flen, rlen))
-        masks.append(fused2.device_ops(dev).candidates_join(
-            plane, fl, rl, L, O, num_kmers, "mask", fused2.CAND_LIST_C, j0,
-            Oj, nt=nt))
-    return _reduce(masks, devs[0], operator.or_)
+    """One dp row of the candidate step: the candidate search over the
+    whole plane, once, on the row's first device (the mask
+    ``pack_bits16(psum(candc) != 0)`` of the JAX body, whose op cells
+    each search a row block: the k-mer windows and the rank cross row
+    blocks, so a block's search would repeat the pair's decode, sort and
+    probes). The row's other op cells take no part."""
+    return fused2.device_ops(devs[0]).candidates_join(
+        nt_pack, *_int32(flen, rlen), L, O, num_kmers, "mask",
+        fused2.CAND_LIST_C, nt=nt)
 
 
 def _sharded_cand_body_packed4(devs, plane4, flen, rlen, *, L, O,

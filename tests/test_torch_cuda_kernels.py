@@ -1,11 +1,12 @@
 """The port's CUDA kernels on the card: equal to their plain PyTorch
 versions and to native.cand_mask (the exact host twin): the sort-join
 ``cand_join`` on the packed and the nibble plane, at num_kmers 0-3, in
-list and mask form and over row blocks, and the other kernels (``counts``
-with its k-mer hits from the same join, ``shortlist`` also on the edge
-rows of tests/shortlist_rows.py), over the full plane
-and over the row blocks of the op-sharded steps (the LUT sums of pear /
-rdp_mle bit for bit too), and the engine on the card equal to the engine
+list and mask form, and the other kernels (``counts`` with its k-mer hits
+from the same join, ``shortlist`` also on the edge rows of
+tests/shortlist_rows.py, the LUT sums of pear / rdp_mle bit for bit also
+on the edge rows of tests/lut_rows.py), over the full plane and over the
+row blocks of the op-sharded steps, the mesh's steps with one sort-join
+per dp row, and the engine on the card equal to the engine
 on the CPU, on the sparse path and the dense -k 0 path, on one device
 and on a (dp=2, op=2) mesh of one card; on a machine with several cards,
 also on a named card other than the current device and on meshes across
@@ -62,8 +63,7 @@ def _batch(n=200):
 
 def _check(dev, plane, flen, rlen, Lb, O, k, nt=False):
     """cand_join against its plain version on the card, in list and mask
-    form, over the full plane and the row blocks of op 2 and 4 (whose
-    masks OR to the full plane's). Returns the full mask."""
+    form. Returns the mask."""
     plane = torch.from_numpy(plane).to(dev)
     flen = torch.from_numpy(np.ascontiguousarray(flen, np.int32)).to(dev)
     rlen = torch.from_numpy(np.ascontiguousarray(rlen, np.int32)).to(dev)
@@ -72,15 +72,6 @@ def _check(dev, plane, flen, rlen, Lb, O, k, nt=False):
         got = cand.candidates_join(*args, mode, C, nt=nt)
         assert torch.equal(got, fused2.plain_candidates_join(
             *args, mode, C, nt=nt)), (mode, nt)
-    for op in (2, 4):
-        Oj = O // op
-        acc = torch.zeros_like(got)
-        for j0 in range(0, O, Oj):
-            m = cand.candidates_join(*args, "mask", C, j0, Oj, nt=nt)
-            assert torch.equal(m, fused2.plain_candidates_join(
-                *args, "mask", C, j0, Oj, nt=nt)), (op, j0, nt)
-            acc |= m
-        assert torch.equal(acc, got)
     torch.cuda.synchronize()
     return got.cpu().numpy()
 
@@ -261,15 +252,21 @@ def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
     assert out["cpu"] and out["cuda"] == out["cpu"]
 
 
-def _lut_inputs(dev, rng, B, L):
-    """Nibble planes with N runs and pads, quals from -3 to 49 with stale
-    tails, and pear's and rdp_mle's tables on the card."""
+def _lut_inputs(dev, rng, B, L, rows="random"):
+    """Nibble planes with N runs and pads and quals from -3 to 49 with
+    stale tails ("random"), or the edge rows of tests/lut_rows.py
+    ("edge"); and pear's and rdp_mle's tables on the card."""
     import math
 
     from pandaseq_tpu_torch import tables
-    nt, flen, rlen = _nt_planes(rng, B, L)
-    fq = rng.integers(-3, 50, (B, L)).astype(np.int8)
-    rq = rng.integers(-3, 50, (B, L)).astype(np.int8)
+    from tests.lut_rows import lut_edge_rows
+    if rows == "edge":
+        fwd, rev, fq, rq, flen, rlen = lut_edge_rows(rng, B, L)
+        nt = (fwd | (rev << 4)).view(np.int8)
+    else:
+        nt, flen, rlen = _nt_planes(rng, B, L)
+        fq = rng.integers(-3, 50, (B, L)).astype(np.int8)
+        rq = rng.integers(-3, 50, (B, L)).astype(np.int8)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     nn = float(tables.QUAL_NN_SIMPLE_BAYESIAN)
     luts = {"pear": (tables.QUAL_MATCH_PEAR, tables.QUAL_MISMATCH_PEAR,
@@ -281,31 +278,35 @@ def _lut_inputs(dev, rng, B, L):
     return tuple(map(t, (nt, fq, rq, flen, rlen))), luts
 
 
-@pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (512, 512)])
-def test_lut_sums_equal_twin(dev, Lb, O):
+@pytest.mark.parametrize("rows", ["random", "edge"])
+@pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (512, 512),
+                                  (1024, 1024)])
+def test_lut_sums_equal_twin(dev, Lb, O, rows):
     """lut_sums against its twin bit for bit, over the full plane and the
-    row blocks of op 2 and 4, for pear and rdp_mle; then the LUT kind of
-    the shortlist kernel against its twin, and the [B, 3L] single-upload
-    entry point against assemble_shortlist (its nt columns are a strided
-    view of the plane)."""
+    row blocks of op 2 and 4 (and one block that is not aligned to the
+    kernel's 8 diagonals a thread), for pear and rdp_mle, on random
+    planes and on the edge rows of tests/lut_rows.py; then the LUT kind
+    of the shortlist kernel against its twin, and the [B, 3L]
+    single-upload entry point against assemble_shortlist (its nt columns
+    are a strided view of the plane)."""
     rng = np.random.default_rng(Lb + O)
     B = 256
-    (nt, fq, rq, flen, rlen), luts = _lut_inputs(dev, rng, B, Lb)
+    (nt, fq, rq, flen, rlen), luts = _lut_inputs(dev, rng, B, Lb, rows)
     zeros = torch.zeros(B, dtype=torch.int32, device=dev)
     for kind, (tm, tmm, nn) in luts.items():
         full = dense.lut_sums(nt, fq, rq, flen, rlen, O, kind, tm, tmm, nn)
         want = fused2.plain_lut_sums(nt, fq, rq, flen, rlen, O, kind, tm,
                                      tmm, nn)
         assert torch.equal(full.view(torch.int32), want.view(torch.int32))
-        for op in (2, 4):
-            Oj = O // op
-            for j0 in range(0, O, Oj):
-                got = dense.lut_sums(nt, fq, rq, flen, rlen, O, kind, tm,
-                                     tmm, nn, j0, Oj)
-                want = fused2.plain_lut_sums(nt, fq, rq, flen, rlen, O,
-                                             kind, tm, tmm, nn, j0, Oj)
-                assert torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)), (kind, op, j0)
+        blocks = [(j0, O // op) for op in (2, 4)
+                  for j0 in range(0, O, O // op)] + [(4, O // 2 - 12)]
+        for j0, Oj in blocks:
+            got = dense.lut_sums(nt, fq, rq, flen, rlen, O, kind, tm, tmm,
+                                 nn, j0, Oj)
+            want = fused2.plain_lut_sums(nt, fq, rq, flen, rlen, O, kind,
+                                         tm, tmm, nn, j0, Oj)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (kind, j0, Oj)
         counts = dense.counts(nt, flen, rlen, Lb, O, 2)
         for maxoverlap in (0, 200):
             kw = dict(O=O, SL=8, minoverlap=3, maxoverlap=maxoverlap,
@@ -329,10 +330,12 @@ def test_lut_sums_equal_twin(dev, Lb, O):
 
 @pytest.mark.parametrize("Lb,O", [(128, 96), (256, 256), (384, 384)])
 def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
-    """counts and cand_join (nibble plane) over the row blocks of op 2
-    and 4, at num_kmers 0 and 2: each block equals its twin, the blocks'
-    counts add up to the full-plane kernel's and their masks OR to its
-    mask, exactly."""
+    """counts over the row blocks of op 2 and 4, at num_kmers 0 and 2,
+    with the k-mer hits of the block's rows and with the mesh's hit rows
+    (every row in the first block, none in the others): each block
+    equals its twin and the blocks add up to the full-plane kernel's
+    counts, exactly; the blocks' own hits fall on the diagonals of the
+    full-plane cand_join mask and together set all of its bits."""
     rng = np.random.default_rng(O)
     nt, flen, rlen = _nt_planes(rng, 256, Lb)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -343,31 +346,69 @@ def test_row_block_kernels_equal_twins_and_full(dev, Lb, O):
                                          C, nt=True)
         for op in (2, 4):
             Oj = O // op
-            sums = [torch.zeros_like(x) for x in full]
-            mask = torch.zeros_like(full_mask)
-            for j0 in range(0, O, Oj):
-                got = dense.counts(nt, flen, rlen, Lb, O, k, j0, Oj)
-                for s, g, w in zip(sums, got, fused2.plain_counts(
-                        nt, flen, rlen, Lb, O, k, j0, Oj)):
-                    assert torch.equal(g, w)
-                    s += g
-                m = cand.candidates_join(nt, flen, rlen, Lb, O, k, "mask",
-                                         C, j0, Oj, nt=True)
-                assert torch.equal(m, fused2.plain_candidates_join(
-                    nt, flen, rlen, Lb, O, k, "mask", C, j0, Oj, nt=True))
-                mask |= m
-            for s, f in zip(sums, full):
-                assert torch.equal(s, f)
-            assert torch.equal(mask, full_mask)
+            for mesh_hits in (False, True):
+                sums = [torch.zeros_like(x) for x in full]
+                for j0 in range(0, O, Oj):
+                    hit_rows = (0, O if j0 == 0 else 0) if mesh_hits \
+                        else None
+                    got = dense.counts(nt, flen, rlen, Lb, O, k, j0, Oj,
+                                       hit_rows)
+                    for s, g, w in zip(sums, got, fused2.plain_counts(
+                            nt, flen, rlen, Lb, O, k, j0, Oj, hit_rows)):
+                        assert torch.equal(g, w)
+                        s += g
+                    hits = fused2.pack_bits16(got[2] != 0, O)
+                    assert torch.equal(hits & full_mask, hits)
+                for s, f in zip(sums, full):
+                    assert torch.equal(s, f)
+                assert torch.equal(fused2.pack_bits16(sums[2] != 0, O),
+                                   full_mask)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
+def test_mesh_steps_join_once_per_dp_row(dev, num_kmers):
+    """On a (dp=2, op=2) mesh of one card, the candidate steps launch
+    cand_join once per dp row (2), not once per cell, with the
+    single-device mask; the shortlist step launches counts once per cell
+    (4) and the shortlist once per dp row, with the single-device
+    result, its k-mer hits counted in each dp row's first cell."""
+    from pandaseq_tpu_torch.parallel import shard
+    rng = np.random.default_rng(num_kmers)
+    Lb, B = 256, 64
+    nt, flen, rlen = _nt_planes(rng, B, Lb)
+    fo = np.zeros(B, np.int32)
+    mesh = shard.make_mesh(devices=[dev] * 4, dp=2, op=2)
+    kernels = dict.fromkeys(cand.KERNELS, 0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for step in (shard.make_sharded_cand_step,
+                 shard.make_sharded_cand_step_packed4):
+        plane = nt if step is shard.make_sharded_cand_step else \
+            np.ascontiguousarray(nt.view(np.uint8)[:, :Lb // 2]).view(
+                np.int8)
+        cand.reset_launch_counts()
+        got = step(mesh, L=Lb, num_kmers=num_kmers)(plane, flen, rlen)
+        assert cand.launch_counts() == dict(kernels, cand_join=2)
+        nt_plane = step is shard.make_sharded_cand_step
+        assert torch.equal(got, fused2.plain_candidates_join(
+            torch.from_numpy(plane), torch.from_numpy(flen),
+            torch.from_numpy(rlen), Lb, Lb, num_kmers, "mask",
+            nt=nt_plane).to(dev))
+    cand.reset_launch_counts()
+    args = (nt, None, None, flen, rlen, fo, fo)
+    got = shard.make_sharded_step(mesh, L=Lb, num_kmers=num_kmers)(*args)
+    assert cand.launch_counts() == dict(kernels, counts=4, shortlist=2)
+    assert torch.equal(got, fused2.assemble_shortlist_nt(
+        *map(t, (nt, flen, rlen, fo, fo)), L=Lb, num_kmers=num_kmers))
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("num_kmers", [2, 0])
 def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
     """A (dp=2, op=2) mesh on one card through the engine gives the CPU
-    engine's bytes; each 64-pair batch splits, so each launches
-    cand_join, or counts, once per mesh cell (4) and the shortlist once
-    per dp row (2); the last batch of 8 splits too."""
+    engine's bytes; each 64-pair batch splits, so each launches cand_join
+    once per dp row (2), or counts once per mesh cell (4) and the
+    shortlist once per dp row (2); the last batch of 8 splits too."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     cfg = oracle.OracleConfig(num_kmers=num_kmers)
@@ -386,7 +427,7 @@ def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
             path = ("cand_join",) if num_kmers else ("counts", "shortlist")
             want = dict.fromkeys(cand.KERNELS, 0)
             for name in path:
-                want[name] = 4 * (2 if name == "shortlist" else 4)
+                want[name] = 4 * (4 if name == "counts" else 2)
             assert cand.launch_counts() == want
     assert out["cpu"] and out["cuda"] == out["cpu"]
 

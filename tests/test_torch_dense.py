@@ -131,6 +131,36 @@ def test_counts_equals_jax(L, num_kmers):
     assert full[2].numpy().any() == (num_kmers > 0)
 
 
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
+@pytest.mark.parametrize("L", [64, 96, 128])
+def test_counts_hit_rows_equal_jax(L, num_kmers):
+    """The counts' hit rows apart from their bit rows, as the mesh's op
+    cells take them: each row block of op 2 and 4 counts its matches and
+    N (the JAX package's block), and its k-mer hits over the rows named
+    — every row in the first block (the JAX package's full-plane hits),
+    none in the others — so the blocks add up to the full plane."""
+    rng = np.random.default_rng(10 * L + num_kmers)
+    fwd, rev, nt, flen, rlen = _nt_planes(rng, 16, L)
+    args = (_t(nt), _t(flen), _t(rlen), L, L, num_kmers)
+    full = _jax_counts_of(fwd, rev, flen, rlen, L, L, num_kmers)
+    assert np.asarray(full[2]).any()
+    for op in (2, 4):
+        Oj = L // op
+        sums = [np.zeros_like(np.asarray(x)) for x in full]
+        for j0 in range(0, L, Oj):
+            got = tf.plain_counts(*args, j0, Oj,
+                                  hit_rows=(0, L if j0 == 0 else 0))
+            want = _jax_counts_of(fwd, rev, flen, rlen, L, L, num_kmers, j0,
+                                  Oj)
+            _eq(got[0], want[0])
+            _eq(got[1], want[1])
+            _eq(got[2], full[2] if j0 == 0 else np.zeros_like(want[2]))
+            for acc, g in zip(sums, got):
+                acc += g.numpy()
+        for acc, f in zip(sums, full):
+            _eq(torch.from_numpy(acc), f)
+
+
 @pytest.mark.parametrize("pallas", ["", "interpret"])
 @pytest.mark.parametrize("num_kmers", [1, 2, 3])
 def test_assemble_candidates_nt_equals_jax(monkeypatch, num_kmers, pallas):

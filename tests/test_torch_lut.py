@@ -31,6 +31,7 @@ import torch
 from pandaseq_tpu import tables
 from pandaseq_tpu.ops import fused2 as jf
 from pandaseq_tpu_torch.ops import fused2 as tf
+from tests.lut_rows import lut_edge_rows
 from tests.test_torch_dense import _nt_planes
 from tests.test_torch_fused2 import _t
 
@@ -107,6 +108,27 @@ def test_lut_plane_sums_equals_jax(kind, L, O):
             assert (np.abs(part - want) <= _bound(*args, j0=j0, Oj=Oj)).all()
         assert (np.abs(np.sum(parts, axis=0, dtype=np.float64) - full)
                 <= bound).all()
+
+
+@pytest.mark.parametrize("kind", ["pear", "rdp_mle"])
+@pytest.mark.parametrize("L,O", [(64, 32), (128, 96), (128, 128)])
+def test_lut_plane_sums_edge_rows_equal_jax(kind, L, O):
+    """The edge rows of tests/lut_rows.py (interior pads, N runs on
+    either side, quals outside [0, 46], all-pad rows, flen or rlen 0,
+    pear's stale tail) against the JAX package, over the full plane and
+    the row blocks of op 2 and 4; a row without bases sums to +0.0."""
+    fwd, rev, fr_q, rr_q, flen, rlen = lut_edge_rows(
+        np.random.default_rng(L + O + len(kind)), 32, L)
+    args = (fwd, rev, fr_q, rr_q, flen, rlen, L, O, kind)
+    blocks = [(0, O)] + [(j0, O // op) for op in (2, 4)
+                         for j0 in range(0, O, O // op)]
+    for j0, Oj in blocks:
+        got = _port_sums(*args, j0=j0, Oj=Oj)
+        want = _jax_sums(*args, j0=j0, Oj=Oj)
+        assert (np.abs(got - want) <= _bound(*args, j0=j0, Oj=Oj)).all()
+        empty = (flen == 0) | (rlen == 0)
+        assert (got[empty].view(np.int32) == 0).all()
+    assert got.any()
 
 
 def test_pear_reads_the_stale_forward_tail():

@@ -50,14 +50,17 @@ def _args(B, L, seed):
     return (_pack(fwd_nt, rev_nt), fwd_q, rev_q, flen, rlen, zeros, zeros)
 
 
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
 @pytest.mark.parametrize("op", [2, 4])
-def test_sharded_step_matches_single_device(op):
-    """The dp x op-sharded shortlist step (row blocks, partial counts
-    added over op) equals the single-device step bit for bit."""
+def test_sharded_step_matches_single_device(op, num_kmers):
+    """The dp x op-sharded shortlist step (row blocks of matches and N,
+    the k-mer hits of every row in each dp row's first cell, partial
+    counts added over op) equals the single-device step bit for bit."""
     L, B = 128, 32
     q = 0.36
     kw = dict(pmatch=math.log(0.25 * (1 - q) ** 2),
-              pmismatch=math.log((3 * q - 2 * q * q) / 18))
+              pmismatch=math.log((3 * q - 2 * q * q) / 18),
+              num_kmers=num_kmers)
     args = _args(B, L, 3)
     mesh = shard.make_mesh(devices=CPU8, op=op)
     assert mesh.shape == {"dp": 8 // op, "op": op}
@@ -69,12 +72,14 @@ def test_sharded_step_matches_single_device(op):
     _check_shortlist(sharded, jf.assemble_shortlist(*args, L=L, **kw))
 
 
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
 @pytest.mark.parametrize("kind", ["pear", "rdp_mle"])
-def test_sharded_step_lut_matches_single_device(kind):
+def test_sharded_step_lut_matches_single_device(kind, num_kmers):
     L, B = 128, 16
     args = _args(B, L, 9)
     tm, tmm, nn = LUTS[kind]
-    kw = dict(algo_kind=kind, nn_term=nn, lut_match=tm, lut_mismatch=tmm)
+    kw = dict(algo_kind=kind, nn_term=nn, lut_match=tm, lut_mismatch=tmm,
+              num_kmers=num_kmers)
     mesh = shard.make_mesh(devices=CPU8, op=2)
     step = shard.make_sharded_step(mesh, L=L, **kw)
     sharded = step(*shard.shard_batch(mesh, args)).numpy()
@@ -87,30 +92,76 @@ def test_sharded_step_lut_matches_single_device(kind):
                                       single[:, 2 * SL + 1])
 
 
+def _counting_ops(monkeypatch):
+    """Patch the ops the mesh steps take so that each call of the
+    candidate search, and each counts call that searches k-mer hits
+    (a hit range that is not empty), is recorded; returns the list."""
+    calls = []
+    ops = tf.device_ops
+
+    def device_ops(dev):
+        real = ops(dev)
+
+        def candidates_join(*a, **k):
+            calls.append("cand_join")
+            return real.candidates_join(*a, **k)
+
+        def counts(*a, hit_rows=None, **k):
+            if a[5] and (hit_rows is None or hit_rows[1]):
+                calls.append("join in counts")
+            return real.counts(*a, hit_rows=hit_rows, **k)
+        return real._replace(candidates_join=candidates_join, counts=counts)
+    monkeypatch.setattr(shard.fused2, "device_ops", device_ops)
+    return calls
+
+
+@pytest.mark.parametrize("num_kmers", [0, 1, 2, 3])
 @pytest.mark.parametrize("op", [2, 4])
-def test_sharded_candidate_steps_match_single_device(op):
+def test_sharded_candidate_steps_match_single_device(monkeypatch, op,
+                                                     num_kmers):
     """The candidate steps on the nibble plane and on the 4-bit packed
-    upload: row-block masks ORed over op equal the JAX package's
-    single-device masks."""
+    upload: the mask of one search per dp row equals the JAX package's
+    single-device mask; the search runs once per dp row, whatever op."""
     from pandaseq_tpu_torch.io.native import pack4
 
     L, B = 128, 32
+    calls = _counting_ops(monkeypatch)
     nt, _, _, flen, rlen, _, _ = _args(B, L, 5)
     mesh = shard.make_mesh(devices=CPU8, op=op)
-    step = shard.make_sharded_cand_step(mesh, L=L)
+    step = shard.make_sharded_cand_step(mesh, L=L, num_kmers=num_kmers)
     got = step(*shard.shard_batch(mesh, (nt, flen, rlen)))
-    want = np.asarray(jf.assemble_candidates_nt(nt, flen, rlen, L=L))
+    want = np.asarray(jf.assemble_candidates_nt(nt, flen, rlen, L=L,
+                                                num_kmers=num_kmers))
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want != 0).any()
+    assert (want != 0).any() == (num_kmers > 0)
     pairs = list(fq.read_pairs(SYNTH + "_1.fastq", SYNTH + "_2.fastq"))[:B]
     b = make_batch(pairs, 256)
     plane4, _ = pack4(b, 256)
-    step4 = shard.make_sharded_cand_step_packed4(mesh, L=256)
+    step4 = shard.make_sharded_cand_step_packed4(mesh, L=256,
+                                                 num_kmers=num_kmers)
     got4 = step4(plane4, b.flen, b.rlen)
-    want4 = np.asarray(jf.assemble_candidates_packed4(plane4, b.flen,
-                                                      b.rlen, L=256))
+    want4 = np.asarray(jf.assemble_candidates_packed4(
+        plane4, b.flen, b.rlen, L=256, num_kmers=num_kmers))
     np.testing.assert_array_equal(got4.numpy(), want4)
-    assert (want4 != 0).any()
+    assert (want4 != 0).any() == (num_kmers > 0)
+    assert calls == ["cand_join"] * (2 * mesh.shape["dp"])
+
+
+@pytest.mark.parametrize("num_kmers", [0, 2])
+@pytest.mark.parametrize("op", [2, 4])
+def test_sharded_step_joins_once_per_dp_row(monkeypatch, op, num_kmers):
+    """The shortlist step counts the k-mer hits (its sort-join) in one op
+    cell per dp row, and none at num_kmers 0; the result still equals
+    the single-device step's."""
+    L, B = 128, 32
+    calls = _counting_ops(monkeypatch)
+    args = _args(B, L, 4)
+    mesh = shard.make_mesh(devices=CPU8, op=op)
+    got = shard.make_sharded_step(mesh, L=L, num_kmers=num_kmers)(*args)
+    assert calls == ["join in counts"] * (mesh.shape["dp"] if num_kmers
+                                          else 0)
+    assert torch.equal(got, tf.assemble_shortlist(
+        *map(torch.from_numpy, args), L=L, num_kmers=num_kmers))
 
 
 @pytest.mark.parametrize("algo", ["simple_bayesian", "rdp_mle"])
@@ -202,8 +253,7 @@ def test_mesh_checks():
     mesh = shard.make_mesh(devices=CPU8, op=2)
     with pytest.raises(ValueError, match="type"):
         BatchAssembler(device="cuda", mesh=mesh)
-    step = shard.make_sharded_cand_step(shard.make_mesh(devices=CPU8,
-                                                        op=8), L=140)
-    nt, _, _, flen, rlen, _, _ = _args(8, 140, 1)
+    step = shard.make_sharded_step(shard.make_mesh(devices=CPU8, op=8),
+                                   L=140)
     with pytest.raises(ValueError, match="row blocks"):
-        step(nt, flen, rlen)  # O=140 does not split into 8 row blocks
+        step(*_args(8, 140, 1))  # O=140 does not split into 8 row blocks
