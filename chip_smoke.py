@@ -51,7 +51,8 @@ phase is caught.
      kernel against its twin.
 3. The port CLI end to end against the native host engine
    (PANDASEQ_TPU_ENGINE=host; the cuda runs pin the device engine with
-   PANDASEQ_TPU_ENGINE=tpu, the JAX package's name): FASTA
+   PANDASEQ_TPU_ENGINE=tpu, the JAX package's name; every run pins
+   PANDASEQ_TPU_HYBRID=0, so no batch is stolen by the host): FASTA
    byte-identical and non-empty, the STAT/log line sequence equal, and
    every kernel of the run's path launched once per dispatched batch and
    every other kernel never (the defaults: cand_join alone; -k 0: counts
@@ -67,7 +68,8 @@ phase is caught.
      the measured host and device ms; its launch check leaves out the
      probe's own runtime.PROBE_RUNS launches of cand_join.
    Pairs/s of both engines beside the card's line.
-4. The mesh engine (parallel/shard.py) on one card: BatchAssembler with
+4. The mesh engine (parallel/shard.py) on one card (PANDASEQ_TPU_HYBRID=0
+   pinned): BatchAssembler with
    make_mesh(devices=["cuda:0"] * 4, dp=2, op=2) through emit_stream on
    the 500,000 pairs, for the defaults and -k 0, and with a dp-only mesh
    (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
@@ -86,12 +88,37 @@ phase is caught.
    more than the f32 summation bound; assemble_shortlist_packed (the
    [B, 3L] single upload) equal to assemble_shortlist. Pairs/s beside the
    card's line.
-5. Two-process run_distributed on the card: two OS processes on cuda:0,
-   torch.distributed over gloo on localhost, claiming the 500,000 pairs'
-   batches round-robin; the union of their part files' records equals
-   the single-process run's, and both ranks' reduced counter vectors
-   equal each other and the single-process vector.
-6. The card's line, the kernels' JSON line, and the result line.
+5. Two-process run_distributed on the card through
+   ``python -m pandaseq_tpu_torch.scale_run --procs 2 --mode mux`` on the
+   500,000 pairs: two OS processes on cuda:0, torch.distributed over gloo
+   on localhost, claiming the stream's batches round-robin; the union of
+   their part files' records equals the one-process run's, and the
+   reduced counter vectors (and overlap histograms) are equal. The steal
+   is off (PANDASEQ_TPU_HYBRID=0): each process launches cand_join once
+   per dispatch group of its batches and no other kernel.
+6. Lanes and tools, each through the entry point a user calls:
+   - the hybrid host steal: emit_stream on the 500,000 pairs on the card
+     (PANDASEQ_TPU_ENGINE=tpu) with PANDASEQ_TPU_HYBRID in turns 0,
+     force, adaptive (unset), adaptive, force, 0: FASTA byte-identical to
+     phase 3's and STAT equal to the host engine's; over the 62 batches
+     "0" launches cand_join 62 times and steals none, "force" launches
+     nothing and steals 62, adaptive launches and steals 62 in all; -k 0
+     with "force" steals nothing and launches counts and shortlist 62
+     times each. Then the steal's A/B at run_distributed's group 4 and
+     depth 6: 0, adaptive, adaptive, 0, twice, each byte-identical, with
+     cand_join launched once per group that is not stolen. Pairs/s of
+     each run beside the card's line;
+   - the device offload: the host engine with PANDASEQ_TPU_OFFLOAD=1
+     (which the card passes by its device type) in turns 0, 1, 1, 0:
+     byte-identical, groups offloaded (a lane timeout raises), cand_join
+     launched once per offloaded group and nothing else; pairs/s;
+   - the tools: pandaseq-tpu-torch-diff (-- -- -t 0.9, and -- -A pear --
+     -A rdp_mle) on 10,000 pairs with the device engine (cand_join
+     launched in both passes) and the host engine: equal report and exit
+     status; pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, card
+     against host: FASTA and STAT equal, non-empty; pandaseq-tpu-torch-
+     checkid on one header.
+7. The card's line, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -112,6 +139,11 @@ B = 8192  # phase 2's batch: the CLI's default (cli/main.py)
 CLI_BATCH = 8192  # the CLI's default batch: one dispatch per batch
 E2E_PAIRS = 500000
 ALGO_PAIRS = 50000
+DIFF_PAIRS = 10000  # pandaseq-tpu-torch-diff holds every pair in memory
+PRIMED_PAIRS = 50000  # pandaseq-tpu-torch-hang's input
+# the primers of tests/test_oracle_primers.py; hang takes -P REV -Q FWD
+FWD_PRIMER = "GTGCCAGCMGCCGCGGTAA"
+REV_PRIMER = "GGACTACHVGGGTWTCTAAT"
 C = 4
 SL = 8
 SHAPES = (256, 384, 512)  # Lb = O
@@ -817,6 +849,7 @@ def run_cli(f1, f2, out_dir, engine, tag, extra=()):
     fa = os.path.join(out_dir, tag + ".fa")
     log = os.path.join(out_dir, tag + ".log")
     os.environ.pop("PANDASEQ_TPU_HOST", None)
+    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # one launch per batch
     if engine is None:
         os.environ.pop("PANDASEQ_TPU_ENGINE", None)
     else:
@@ -961,22 +994,25 @@ def phase_e2e(tmp, card):
     return counts, data["big"], fasta
 
 
-def emit_run(asm, f1, f2, out_path):
+def emit_run(asm, f1, f2, out_path, group=1, depth=10):
     """The CLI's byte path driven from the library: emit_stream over the
     native reader with the _pre stage on the prefetch thread, at the
-    CLI's batch, ring and depth. Returns (seconds, batch sizes, STAT
+    CLI's batch, ring and depth (and dispatch group), unless ``group``
+    and ``depth`` say otherwise. Returns (seconds, batch sizes, STAT
     counters)."""
     from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.io.prefetch import prefetch
 
+    # the CLI's ring, or run_distributed's for a grouped run
+    ring = 25 if group == 1 else 2 * depth + group + 16
     reader = native.NativeBatchReader(f1, f2, batch=CLI_BATCH, L=512,
-                                      ring=25)
+                                      ring=ring)
     sizes = []
     t0 = time.perf_counter()
     with open(out_path, "wb") as out:
         for _, codes, payload in asm.emit_stream(
-                prefetch(asm.pre_stream(reader)), fmt="fasta", depth=10,
-                threaded=True):
+                prefetch(asm.pre_stream(reader)), fmt="fasta", depth=depth,
+                threaded=True, group=group):
             out.write(payload)
             sizes.append(len(codes))
     dt = time.perf_counter() - t0
@@ -1080,7 +1116,8 @@ def lut_mesh_step(mesh, batch, luts):
 def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     """Phase 4: the mesh engine on one card against the CLI runs of
     phase 3 and the host engine; then the LUT library path on the mesh.
-    Returns the LUT path's launch counts."""
+    Returns the LUT path's launch counts and the host engine's STAT
+    through emit_stream of each path."""
     from pandaseq_tpu_torch import oracle
     from pandaseq_tpu_torch.assembler import BatchAssembler
     from pandaseq_tpu_torch.ops import cand
@@ -1092,13 +1129,16 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     # no engine pin: the mesh itself pins the device engine
     os.environ.pop("PANDASEQ_TPU_ENGINE", None)
     os.environ.pop("PANDASEQ_TPU_HOST", None)
+    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # the single-device launches
     cuda0 = "%s:0" % DEVICE
+    host_stat = {}
     for path_name, k, path, meshes in (("sparse", 2, SPARSE, MESHES),
                                        ("dense", 0, DENSE, MESHES[:1])):
         label = "%d 2x250%s" % (E2E_PAIRS, " -k 0" if k == 0 else "")
         cfg = oracle.OracleConfig(num_kmers=k)
         dt_h, _, host_counters = emit_run(
             BatchAssembler(cfg, device=DEVICE, host_only=True), f1, f2, out)
+        host_stat[path_name] = host_counters
         if not filecmp.cmp(out, fasta[path_name], shallow=False):
             raise SystemExit("%s: host engine through emit_stream differs "
                              "from the CLI's FASTA" % label)
@@ -1141,100 +1181,299 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
                 % (label, dp, op, os.path.getsize(out), counters[:8],
                    {n: c for n, c in launched.items() if c}, len(sizes),
                    split, E2E_PAIRS / dt, dt, card))
-        os.remove(fasta[path_name])
     os.remove(out)
     mesh = shard.make_mesh(devices=[cuda0] * 4, dp=2, op=2)
-    return lut_mesh_step(mesh, batch_256, luts)
-
-
-_DIST_WORKER = r"""
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import torch
-from pandaseq_tpu_torch.parallel import distributed as D
-perf = {}
-vec, hist = D.run_distributed([(sys.argv[2], sys.argv[3])],
-                              out_dir=sys.argv[4], batch=int(sys.argv[5]),
-                              perf_out=perf)
-print("RESULT " + json.dumps({"vec": [int(x) for x in vec],
-                              "hist": sorted(hist.items()), "perf": perf}))
-torch.distributed.destroy_process_group()
-"""
-
-
-def _records(path):
-    with open(path, "rb") as fh:
-        return fh.read().split(b">")[1:]
+    return lut_mesh_step(mesh, batch_256, luts), host_stat
 
 
 def phase_distributed(tmp, card, f1, f2):
-    """Phase 5: two OS processes on cuda:0 run run_distributed over gloo
-    in mux mode; their part files' union and reduced vectors against the
-    single-process run."""
-    import socket
+    """Phase 5: ``python -m pandaseq_tpu_torch.scale_run --procs 2`` in
+    mux mode on the 500,000 pairs: two OS processes on cuda:0 run
+    run_distributed over gloo; scale_run holds the union of their part
+    files' records to the one-process run's and the reduced counter
+    vectors and histograms to each other and exits nonzero otherwise.
+    The steal is off (HYBRID=0), so every group of every process goes
+    through cand_join: one launch per dispatch group, no other kernel."""
+    import inspect
 
     from pandaseq_tpu_torch.parallel import distributed
 
-    sub = os.path.join(tmp, "dist")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = str(sock.getsockname()[1])
-    env = dict(os.environ, PANDASEQ_TORCH_DEVICE=DEVICE,
-               PANDASEQ_TPU_ENGINE="tpu", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=port, WORLD_SIZE="2")
-    env.pop("PANDASEQ_TPU_HOST", None)
-    parts = os.path.join(sub, "parts")
+    sub = os.path.join(tmp, "scale")
+    env = dict(os.environ, PANDASEQ_TPU_ENGINE="tpu",
+               PANDASEQ_TPU_HYBRID="0")
+    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_OFFLOAD"):
+        env.pop(name, None)
+    group = inspect.signature(
+        distributed.run_distributed).parameters["group"].default
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _DIST_WORKER, ROOT, f1, f2, parts,
-         str(CLI_BATCH)], env=dict(env, RANK=str(rank)),
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pandaseq_tpu_torch.scale_run", "--procs",
+         "2", "--mode", "mux", "--device", DEVICE, "--input", f1, f2,
+         "--batch", str(CLI_BATCH), "--workdir", sub],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=ROOT) for rank in range(2)]
+        env=env, cwd=ROOT)
     try:
-        outs = [p.communicate(timeout=600)[0] for p in procs]
+        out = proc.communicate(timeout=900)[0]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
-    for rank, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode:
-            raise SystemExit("run_distributed rank %d exited %d:\n%s"
-                             % (rank, p.returncode, o[-3000:]))
-    res = [json.loads(o.rsplit("RESULT ", 1)[1].splitlines()[0])
-           for o in outs]
+    if proc.returncode:
+        raise SystemExit("scale_run exited %d:\n%s"
+                         % (proc.returncode, out[-3000:]))
+    m = json.loads(out.strip().splitlines()[-1])["mux_shared_stream"]
+    if not (m["output_identical"] and m["global_stat_identical"]
+            and m["pairs"] == E2E_PAIRS
+            and all(n > 0 for n in m["multi_per_proc_pairs"])):
+        raise SystemExit("scale_run: %s" % m)
+
+    def groups(pairs):
+        return math.ceil(math.ceil(pairs / CLI_BATCH) / group)
+
+    none = dict.fromkeys(KERNELS, 0)
+    want = [dict(none, cand_join=groups(n))
+            for n in [m["pairs"]] + m["multi_per_proc_pairs"]]
+    got = [{k: ln.get(k, 0) for k in KERNELS}
+           for ln in [m["launches_single"]] + m["launches_multi"]]
+    if got != want:
+        raise SystemExit("scale_run launches (one process, then each "
+                         "rank) %s, expected %s" % (got, want))
+    say("scale_run --procs 2 --mode mux (run_distributed, 2 processes on "
+        "one card over gloo, HYBRID=0): %d records == the one process's, "
+        "reduced vectors equal (%s); rank pairs/s %s (%s pairs); one process "
+        "%.1f pairs/s (%.3f s), aggregate %.1f pairs/s, efficiency %.4f; "
+        "launches one process %s, ranks %s; command %.3f s on %s" % (
+            m["output_records_multi"], m["counters_vec"],
+            ", ".join("%.1f" % r for r in m["multi_per_proc_pairs_per_sec"]),
+            m["multi_per_proc_pairs"], m["single_pairs_per_sec"],
+            m["single_wall_s"], m["multi_aggregate_pairs_per_sec"],
+            m["scaling_efficiency"], m["launches_single"],
+            m["launches_multi"], wall, card))
+
+
+def _env(name, value):
+    """Sets os.environ[name], or removes it where ``value`` is None."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
+    """Phase 6, the engine's lanes on the 500,000 pairs through
+    emit_stream: the hybrid host steal (device engine) in turns 0, force,
+    adaptive, adaptive, force, 0 and -k 0 forced at the CLI's group 1 and
+    depth 10; the steal's A/B at run_distributed's group 4 and depth 6 in
+    turns 0, adaptive, adaptive, 0, twice; the device offload (host
+    engine) in turns 0, 1, 1, 0. Each run's FASTA equals phase 3's and
+    its STAT the host engine's; the launches and the lanes' counts are
+    held to what each setting implies."""
+    import inspect
+
+    from pandaseq_tpu_torch import oracle
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    from pandaseq_tpu_torch.ops import cand
+    from pandaseq_tpu_torch.parallel import distributed
+
+    out = os.path.join(tmp, "lanes.fa")
+    n_batches = math.ceil(E2E_PAIRS / CLI_BATCH)
+    none = dict.fromkeys(KERNELS, 0)
+
+    def run(label, cfg, path_name, group=1, depth=10):
+        asm = BatchAssembler(cfg, device=DEVICE)
+        cand.reset_launch_counts()
+        dt, sizes, counters = emit_run(asm, f1, f2, out, group, depth)
+        launched = cand.launch_counts()
+        if len(sizes) != n_batches:
+            raise SystemExit("%s: %d batches, expected %d"
+                             % (label, len(sizes), n_batches))
+        if not filecmp.cmp(out, fasta[path_name], shallow=False):
+            raise SystemExit("%s: FASTA differs from phase 3's" % label)
+        if counters != host_stat[path_name]:
+            raise SystemExit("%s: STAT %s, host engine %s" % (
+                label, counters[:8], host_stat[path_name][:8]))
+        return asm, dt, launched
+
+    _env("PANDASEQ_TPU_OFFLOAD", None)
     os.environ["PANDASEQ_TPU_ENGINE"] = "tpu"
-    perf = {}
-    vec, hist = distributed.run_distributed(
-        [(f1, f2)], out_dir=os.path.join(sub, "single"), batch=CLI_BATCH,
-        perf_out=perf)
-    single = [int(x) for x in vec]
-    if not res[0]["vec"] == res[1]["vec"] == single:
-        raise SystemExit("reduced vectors: rank 0 %s, rank 1 %s, single "
-                         "process %s" % (res[0]["vec"], res[1]["vec"],
-                                         single))
-    if not res[0]["hist"] == res[1]["hist"] == [list(h) for h in
-                                                sorted(hist.items())]:
-        raise SystemExit("reduced overlap histograms differ")
-    recs = [_records(os.path.join(parts, "part-%05d.fasta" % r))
-            for r in range(2)]
-    if not all(recs):
-        raise SystemExit("a rank wrote no records: %s"
-                         % [len(r) for r in recs])
-    want = _records(os.path.join(sub, "single", "part-00000.fasta"))
-    if sorted(recs[0] + recs[1]) != sorted(want):
-        raise SystemExit("the part files' records differ from the single "
-                         "process's")
-    say("run_distributed, 2 processes on one card over gloo, mux mode: "
-        "%d + %d records == the single process's %d, reduced vectors equal "
-        "(%s); rank pairs/s %s, both ranks %.3f s wall from spawn; single "
-        "process %.1f pairs/s (%.3f s) on %s" % (
-            len(recs[0]), len(recs[1]), len(want), single,
-            ", ".join("%.1f (%d pairs, %.3f s)" % (
-                r["perf"]["pairs_per_sec"], r["perf"]["pairs"],
-                r["perf"]["wall_s"]) for r in res),
-            wall, perf["pairs_per_sec"], perf["wall_s"], card))
+    rates = {}
+    for hyb in ("0", "force", None, None, "force", "0"):
+        name = hyb or "adaptive"
+        _env("PANDASEQ_TPU_HYBRID", hyb)
+        label = "%d 2x250 steal %s" % (E2E_PAIRS, name)
+        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse")
+        steals = asm._host_steals
+        if hyb == "0":
+            ok = steals == 0 and launched == dict(none, cand_join=n_batches)
+        elif hyb == "force":
+            ok = steals == n_batches and launched == none
+        else:
+            ok = (launched == dict(none, cand_join=launched["cand_join"])
+                  and launched["cand_join"] + steals == n_batches)
+        if not ok:
+            raise SystemExit("%s: launched %s, %d batches stolen"
+                             % (label, launched, steals))
+        rates.setdefault(name, []).append(dt)
+        say("%s: FASTA == phase 3's, STAT == the host engine's; cand_join "
+            "%d launches, %d batches stolen; %.1f pairs/s (%.3f s) on %s"
+            % (label, launched["cand_join"], steals, E2E_PAIRS / dt, dt,
+               card))
+    # the steal's A/B where its gate fires: run_distributed's group and
+    # depth; one cand_join launch per group that is not stolen
+    params = inspect.signature(distributed.run_distributed).parameters
+    group, depth = params["group"].default, params["depth"].default
+    n_groups = math.ceil(n_batches / group)
+    for hyb in ("0", None, None, "0") * 2:
+        name = "%s group %d" % (hyb or "adaptive", group)
+        _env("PANDASEQ_TPU_HYBRID", hyb)
+        label = "%d 2x250 steal %s depth %d" % (E2E_PAIRS, name, depth)
+        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse",
+                                group, depth)
+        steals = asm._host_steals
+        # only the last group may hold fewer than ``group`` batches
+        if launched != dict(none, cand_join=launched["cand_join"]) or (
+                launched["cand_join"] + math.ceil(steals / group)
+                != n_groups) or (hyb == "0" and steals):
+            raise SystemExit("%s: launched %s, %d batches stolen"
+                             % (label, launched, steals))
+        rates.setdefault(name, []).append(dt)
+        say("%s: FASTA == phase 3's, STAT == the host engine's; cand_join "
+            "%d launches for %d groups, %d batches stolen; %.1f pairs/s "
+            "(%.3f s) on %s" % (label, launched["cand_join"], n_groups,
+                                steals, E2E_PAIRS / dt, dt, card))
+
+    _env("PANDASEQ_TPU_HYBRID", "force")
+    label = "%d 2x250 -k 0 steal force" % E2E_PAIRS
+    asm, dt, launched = run(label, oracle.OracleConfig(num_kmers=0), "dense")
+    if asm._host_steals or launched != dict(none, counts=n_batches,
+                                            shortlist=n_batches):
+        raise SystemExit("%s: launched %s, %d batches stolen"
+                         % (label, launched, asm._host_steals))
+    say("%s: FASTA == phase 3's, no batch stolen, counts and shortlist %d "
+        "launches each; %.1f pairs/s (%.3f s) on %s"
+        % (label, n_batches, E2E_PAIRS / dt, dt, card))
+
+    _env("PANDASEQ_TPU_HYBRID", None)
+    os.environ["PANDASEQ_TPU_ENGINE"] = "host"
+    for off in ("0", "1", "1", "0"):
+        os.environ["PANDASEQ_TPU_OFFLOAD"] = off
+        label = "%d 2x250 host engine offload %s" % (E2E_PAIRS, off)
+        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse")
+        if off == "1":
+            ok = (asm._offload_count > 0
+                  and launched == dict(none,
+                                       cand_join=asm._offload_groups))
+        else:
+            ok = asm._offload_count == 0 and launched == none
+        if not ok:
+            raise SystemExit("%s: launched %s, %d batches in %d groups "
+                             "offloaded" % (label, launched,
+                                            asm._offload_count,
+                                            asm._offload_groups))
+        rates.setdefault("offload " + off, []).append(dt)
+        say("%s: FASTA == phase 3's, STAT == the host engine's; %d batches "
+            "in %d groups offloaded (cand_join %d launches); "
+            "%.1f pairs/s (%.3f s) on %s"
+            % (label, asm._offload_count, asm._offload_groups,
+               launched["cand_join"], E2E_PAIRS / dt, dt, card))
+    _env("PANDASEQ_TPU_OFFLOAD", None)
+    say("lanes, pairs/s over the runs of each setting (total pairs over "
+        "total seconds) on %s: %s" % (card, ", ".join(
+            "%s %.1f (runs %s s)" % (k, E2E_PAIRS * len(t) / sum(t),
+                                     ", ".join("%.3f" % x for x in t))
+            for k, t in rates.items())))
+    os.remove(out)
+    for path in fasta.values():
+        os.remove(path)
+
+
+def phase_tools(tmp, card, diff_data, primed):
+    """Phase 6, the companion tools, each through its main(): diff and
+    hang on the card (the device engine) against the host engine, and
+    checkid."""
+    import contextlib
+    import io
+
+    from pandaseq_tpu_torch.cli import checkid, diffcmd, hang
+    from pandaseq_tpu_torch.ops import cand
+
+    none = dict.fromkeys(KERNELS, 0)
+    n_diff = math.ceil(DIFF_PAIRS / diffcmd.DIFF_BATCH)
+    for args in (["--", "--", "-t", "0.9"],
+                 ["--", "-A", "pear", "--", "-A", "rdp_mle"]):
+        res = {}
+        for engine in ("tpu", "host"):
+            os.environ["PANDASEQ_TPU_ENGINE"] = engine
+            buf = io.StringIO()
+            cand.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = diffcmd.main(["-f", diff_data[0], "-r", diff_data[1],
+                                   *args])
+            dt = time.perf_counter() - t0
+            launched = cand.launch_counts()
+            # two passes (control, experiment) of n_diff batches each
+            want = dict(none, cand_join=2 * n_diff) if engine == "tpu" \
+                else none
+            if launched != want:
+                raise SystemExit("diff %s (%s): launched %s, expected %s"
+                                 % (" ".join(args), engine, launched, want))
+            res[engine] = (rc, buf.getvalue(), dt)
+        if res["tpu"][:2] != res["host"][:2] or not res["tpu"][1]:
+            raise SystemExit("diff %s: the card's report (exit %d) differs "
+                             "from the host engine's (exit %d)"
+                             % (" ".join(args), res["tpu"][0],
+                                res["host"][0]))
+        report = res["tpu"][1].splitlines()
+        say("pandaseq-tpu-torch-diff %s on %d pairs: card == host engine, "
+            "exit %d, %d report lines (%s); card %.3f s, host %.3f s"
+            % (" ".join(args), DIFF_PAIRS, res["tpu"][0], len(report),
+               "; ".join(report[-6:]), res["tpu"][2], res["host"][2]))
+
+    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # every batch on the card
+    got = {}
+    for engine in ("tpu", "host"):
+        os.environ["PANDASEQ_TPU_ENGINE"] = engine
+        fa = os.path.join(tmp, "hang_%s.fa" % engine)
+        log = os.path.join(tmp, "hang_%s.log" % engine)
+        cand.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = hang.main(["-T", "1", "-f", primed[0], "-r", primed[1], "-P",
+                        REV_PRIMER, "-Q", FWD_PRIMER, "-w", fa, "-g", log])
+        dt = time.perf_counter() - t0
+        launched = cand.launch_counts()
+        with open(fa, "rb") as fh:
+            got[engine] = (rc, fh.read(), _norm_log(log)[0], dt, launched)
+    _env("PANDASEQ_TPU_HYBRID", None)
+    card_run, host_run = got["tpu"], got["host"]
+    if card_run[4]["cand_join"] == 0 or card_run[4] != dict(
+            none, cand_join=card_run[4]["cand_join"]) or host_run[4] != none:
+        raise SystemExit("hang: launched %s on the card, %s on the host "
+                         "engine" % (card_run[4], host_run[4]))
+    if card_run[:3] != host_run[:3] or not card_run[1] or card_run[0]:
+        raise SystemExit("hang: the card's FASTA / STAT (exit %d) differ "
+                         "from the host engine's (exit %d)"
+                         % (card_run[0], host_run[0]))
+    stats = [ln for ln in card_run[2] if ln.startswith("STAT\t")
+             and not ln.startswith(("STAT\tTIME", "STAT\tELAPSED",
+                                    "STAT\tOVERLAPS"))][-6:]
+    say("pandaseq-tpu-torch-hang -P %s -Q %s on %d primed pairs: FASTA "
+        "(%d bytes) and STAT equal, card (cand_join %d launches) against "
+        "host engine: %s; card %.3f s, host %.3f s"
+        % (REV_PRIMER, FWD_PRIMER, PRIMED_PAIRS, len(card_run[1]),
+           card_run[4]["cand_join"], ", ".join(
+               s.split("\t", 1)[1].replace("\t", "=") for s in stats),
+           card_run[3], host_run[3]))
+
+    buf = io.StringIO()
+    header = "M01271:10:000000000-A3WGH:1:1101:18786:6175 1:N:0:1"
+    with contextlib.redirect_stdout(buf):
+        rc = checkid.main([header])
+    if rc or "\tGOOD" not in buf.getvalue():
+        raise SystemExit("checkid exited %d: %r" % (rc, buf.getvalue()))
+    say("pandaseq-tpu-torch-checkid %r: GOOD, generator %s" % (
+        header, buf.getvalue().rsplit("generator = ", 1)[1].strip()))
 
 
 def main() -> int:
@@ -1270,12 +1509,24 @@ def main() -> int:
     errs["shortlist_ulp"] = 0
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
             as tmp:
+        # phase 6's inputs, made while the earlier phases run
+        tool_data = {
+            "diff": make_data(os.path.join(tmp, "diff"), "--fast",
+                              "--pairs", str(DIFF_PAIRS), "--seed", "9"),
+            "primed": make_data(os.path.join(tmp, "primed"), "--pairs",
+                                str(PRIMED_PAIRS), "--seed", "7",
+                                "--fwd-primer", FWD_PRIMER,
+                                "--rev-primer", REV_PRIMER)}
         times, batch_256, luts = phase_kernels(tmp, errs, card)
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
         counts, big, fasta = phase_e2e(tmp, card)
-        counts["lut"] = phase_mesh(tmp, card, *big, fasta, batch_256, luts)
+        counts["lut"], host_stat = phase_mesh(tmp, card, *big, fasta,
+                                              batch_256, luts)
         phase_distributed(tmp, card, *big)
+        phase_lanes(tmp, card, *big, fasta, host_stat)
+        phase_tools(tmp, card, wait_data(tool_data["diff"]),
+                    wait_data(tool_data["primed"]))
 
     kernels = []
     for name in KERNELS:

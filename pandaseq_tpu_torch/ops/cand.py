@@ -19,6 +19,8 @@ plain twins for the CPU live in ``ops/fused2.py``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -26,19 +28,23 @@ from . import _build
 KERNELS = ("cand_join", "counts", "shortlist", "lut_sums")
 # launches of each kernel since the last reset_launch_counts()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the engine's offload lane launches from its own threads
+_COUNT_LOCK = threading.Lock()
 
 _MODES = {"list": 0, "mask": 1}
 MAX_WIDTH = 1024  # shared-memory rows of every kernel
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        _LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
-    return dict(_LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
 
 
 def _check(t, name, dtype, shape, device):
@@ -65,7 +71,8 @@ def _launch(dev, kernel, *args, entry=None) -> None:
     if err:
         msg = lib.psq_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
-    _LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        _LAUNCHES[kernel] += 1
 
 
 def candidates_join(plane, flen, rlen, L, O, num_kmers, mode, C, nt=False):

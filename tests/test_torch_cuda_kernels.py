@@ -8,7 +8,8 @@ on the edge rows of tests/lut_rows.py), over the full plane and over the
 row blocks of the op-sharded steps, the mesh's steps with one sort-join
 per dp row, and the engine on the card equal to the engine
 on the CPU, on the sparse path and the dense -k 0 path, on one device
-and on a (dp=2, op=2) mesh of one card; on a machine with several cards,
+and on a (dp=2, op=2) mesh of one card, and through the host-steal and
+device-offload lanes; on a machine with several cards,
 also on a named card other than the current device and on meshes across
 the cards. Every test is marked ``cuda``
 and skips where ``torch.cuda.is_available()`` is False; on a machine
@@ -124,6 +125,7 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
     """200 synth pairs in 4 batches of one shape bucket: one launch of
     cand_join per dispatch (4 ungrouped, 2 in groups of 3)."""
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     out = {}
     for device, group, launches in (("cpu", 1, 0), ("cuda", 1, 4),
                                     ("cuda", 3, 2)):
@@ -138,6 +140,44 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
         assert cand.launch_counts() == dict(
             dict.fromkeys(cand.KERNELS, 0), cand_join=launches)
     assert out["cpu", 1] and len(set(out.values())) == 1
+
+
+def _synth_emit(asm, batch=64):
+    reader = native.NativeBatchReader(os.path.join(DATA, "synth_1.fastq"),
+                                      os.path.join(DATA, "synth_2.fastq"),
+                                      batch=batch, L=512)
+    return b"".join(p for _, _, p in asm.emit_stream(reader, depth=2,
+                                                     threaded=True))
+
+
+def test_lanes_on_card_equal_cpu(dev, monkeypatch):
+    """The engine's two lanes on the card over the 200 synth pairs (4
+    batches): a forced host steal launches no kernel; the offload lane
+    (host engine, PANDASEQ_TPU_OFFLOAD=1, which a CUDA device passes by
+    its type) launches cand_join once per offloaded group. Both give the
+    CPU engine's bytes."""
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")
+    want = _synth_emit(BatchAssembler(device="cpu"))
+    assert want
+    kernels = dict.fromkeys(cand.KERNELS, 0)
+
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "force")
+    cand.reset_launch_counts()
+    asm = BatchAssembler(device="cuda")
+    assert _synth_emit(asm) == want
+    assert asm._host_steals == 4 and cand.launch_counts() == kernels
+
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
+    monkeypatch.setenv("PANDASEQ_TPU_OFFLOAD", "1")
+    cand.reset_launch_counts()
+    asm = BatchAssembler(device="cuda")
+    assert asm._offload_enabled()
+    assert _synth_emit(asm) == want
+    assert asm._offload_count > 0
+    assert cand.launch_counts() == dict(kernels,
+                                        cand_join=asm._offload_groups)
 
 
 def _nt_planes(rng, B, L):
@@ -233,6 +273,7 @@ def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
     """-k 0: the dense kernels, once each per dispatch, give the bytes
     of the plain twins."""
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     cfg = oracle.OracleConfig()
     cfg.algorithm = oracle.make_algorithm(name, None)
     cfg.num_kmers = 0
@@ -411,6 +452,7 @@ def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
     shortlist once per dp row (2); the last batch of 8 splits too."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     cfg = oracle.OracleConfig(num_kmers=num_kmers)
     out = {}
     for device in ("cpu", "cuda"):
@@ -440,6 +482,7 @@ def test_engine_on_named_card_and_across_cards(dev, monkeypatch):
     bytes; each launches the sparse path's cand_join."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     n = torch.cuda.device_count()
     runs = {"cpu": lambda: BatchAssembler(device="cpu"),
             "named": lambda: BatchAssembler(device="cuda:%d" % (n - 1))}

@@ -6,6 +6,7 @@ where there is none raises instead of running on the CPU."""
 
 import ast
 import glob
+import json
 import os
 import shutil
 import subprocess
@@ -155,6 +156,58 @@ def test_mesh_and_run_distributed_without_jax(tmp_path, script):
         outs.append(got.stdout)
     assert outs[0] and outs[0] == outs[1]
     assert b" 200 " in outs[0] or b"[200, " in outs[0]  # 200 pairs
+
+
+_TOOL_RUNS = {
+    "checkid": ["pandaseq_tpu_torch.cli.checkid",
+                "M01271:10:000000000-A3WGH:1:1101:18786:6175 1:N:0:1"],
+    "hang": ["pandaseq_tpu_torch.cli.hang", *BASE, "-P",
+             "GGACTACHVGGGTWTCTAAT", "-Q", "GTGCCAGCMGCCGCGGTAA", "-s"],
+    "diff": ["pandaseq_tpu_torch.cli.diffcmd", *BASE[2:], "--", "-A",
+             "pear", "--", "-A", "rdp_mle"],
+    "scale_run": ["pandaseq_tpu_torch.scale_run", "--procs", "2",
+                  "--device", "cpu", "--batch", "64", "--mode", "mux"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_TOOL_RUNS))
+def test_tools_and_scale_run_without_jax(tmp_path, tool):
+    """The companion tools and scale_run (its worker processes too) run
+    with jax and pandaseq_tpu unimportable in every process they start
+    (a sitecustomize on PYTHONPATH blocks them), with the output of a run
+    where both are importable."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCK)
+    args = list(_TOOL_RUNS[tool])
+    if tool == "scale_run":
+        from pandaseq_tpu_torch import scale_run
+        (pair,) = scale_run.ensure_data(400, 1, str(tmp_path / "data"))
+        args += ["--input", *pair]
+    env = dict(ENV, PANDASEQ_TPU_ENGINE="tpu")
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(name, None)
+    outs = []
+    for i, path in enumerate((ROOT, "%s%s%s" % (site, os.pathsep, ROOT))):
+        extra = (["--workdir", str(tmp_path / ("work%d" % i))]
+                 if tool == "scale_run" else [])
+        got = subprocess.run([sys.executable, "-m", *args, *extra],
+                             capture_output=True, env=dict(env,
+                                                           PYTHONPATH=path),
+                             cwd=ROOT, timeout=300)
+        outs.append(got)
+    blocked = outs[1]
+    assert b"ModuleNotFoundError" not in blocked.stderr + blocked.stdout
+    assert blocked.returncode == outs[0].returncode
+    if tool == "scale_run":
+        assert blocked.returncode == 0, blocked.stdout.decode()[-2000:]
+        rec = [json.loads(o.stdout.decode().strip().splitlines()[-1])
+               for o in outs]
+        m = [r["mux_shared_stream"] for r in rec]
+        assert m[0]["output_identical"] and m[1]["output_identical"]
+        assert m[0]["multiset_sha256_multi"] == m[1]["multiset_sha256_multi"]
+    else:
+        assert blocked.stdout and blocked.stdout == outs[0].stdout
 
 
 @pytest.fixture
