@@ -35,7 +35,10 @@ phase is caught.
      with N bases and B-cliffs (make_data.py without --fast) and on
      random nibble planes with N runs and low-entropy rows; the
      shortlist of every score kind also on the edge rows of
-     tests/shortlist_rows.py; assemble_candidates_nt on the card against
+     tests/shortlist_rows.py, on whose -0.0 / +0.0 row the pear kind
+     ships jax.lax.top_k's order (the +0.0 offsets first), argmax's
+     besto32 and XLA's best32 (the last zero's sign), as the JAX package
+     does on the CPU; assemble_candidates_nt on the card against
      native.cand_mask at num_kmers in {1, 2, 3};
    - counts (num_kmers 0 and 2), shortlist and lut_sums timed beside the
      recorded times of the kernels they replaced (REPLACED_MS) on the
@@ -50,35 +53,34 @@ phase is caught.
      edge rows of tests/lut_rows.py; the LUT kind of the shortlist
      kernel against its twin.
 3. The port CLI end to end against the native host engine
-   (PANDASEQ_TPU_ENGINE=host; the cuda runs pin the device engine with
-   PANDASEQ_TPU_ENGINE=tpu, the JAX package's name; every run pins
-   PANDASEQ_TPU_HYBRID=0, so no batch is stolen by the host): FASTA
-   byte-identical and non-empty, the STAT/log line sequence equal, and
-   every kernel of the run's path launched once per dispatched batch and
-   every other kernel never (the defaults: cand_join alone; -k 0: counts
-   and shortlist):
+   (PANDASEQ_TPU_ENGINE=host). The cuda runs are the run a user types:
+   neither PANDASEQ_TPU_ENGINE nor PANDASEQ_TPU_HYBRID is set, so each
+   must log INFO ENGINE "cuda (default)" (no probe) and, the host steal
+   being opt-in, steal no batch: FASTA byte-identical and non-empty, the
+   STAT/log line sequence equal, and every kernel of the run's path
+   launched once per dispatched batch and every other kernel never (the
+   defaults: cand_join alone; -k 0: counts and shortlist):
    - the defaults (simple_bayesian, -k 2) on 500,000 generated 2x250
      pairs, in turns cuda, host, host, cuda; again on the 200-pair
      stream with N bases and B-cliffs (the host fix-up path);
    - -k 0 (the dense path) on the same 500,000 pairs, and -k 0 with
      -A uparse, ea_util, flash and stitch on 50,000 pairs, each in turns
      cuda, host, host, cuda; -k 0 on the 200-pair stream;
-   - the engine probe: one unpinned default run on the 200-pair stream
-     with an empty probe cache shows INFO ENGINE with reason probe and
-     the measured host and device ms; its launch check leaves out the
-     probe's own runtime.PROBE_RUNS launches of cand_join.
+   - the engine probe: one run under PANDASEQ_TPU_ENGINE=auto on the
+     200-pair stream with an empty probe cache shows INFO ENGINE with
+     reason probe and the measured host and device ms; its launch check
+     leaves out the probe's own runtime.PROBE_RUNS launches of cand_join.
    Pairs/s of both engines beside the card's line.
-4. The mesh engine (parallel/shard.py) on one card (PANDASEQ_TPU_HYBRID=0
-   pinned): BatchAssembler with
+4. The mesh engine (parallel/shard.py) on one card: BatchAssembler with
    make_mesh(devices=["cuda:0"] * 4, dp=2, op=2) through emit_stream on
    the 500,000 pairs, for the defaults and -k 0, and with a dp-only mesh
    (dp=2, op=1) for the defaults: FASTA byte-identical to the CLI runs of
    phase 3, STAT counters equal to the host engine's through the same
-   emit_stream loop (which, with the single-device cuda engine, is also
-   timed there), and the launches the split implies (a split batch
-   launches cand_join once per dp row, not once per mesh cell: the
-   sort-join runs once per dp row; counts once per mesh cell and the
-   shortlist once per dp row; an unsplit batch each once: over the
+   emit_stream loop (which, with the unpinned single-device engine,
+   reason default, is also timed there), and the launches the split
+   implies (a split batch launches cand_join once per dp row, not once
+   per mesh cell: the sort-join runs once per dp row; counts once per
+   mesh cell and the shortlist once per dp row; an unsplit batch each once: over the
    500,000 pairs' 62 batches, all split, the (2, 2) mesh launches
    cand_join 124 times, counts 248 and shortlist 124). Then the pear /
    rdp_mle library path:
@@ -93,13 +95,14 @@ phase is caught.
    500,000 pairs: two OS processes on cuda:0, torch.distributed over gloo
    on localhost, claiming the stream's batches round-robin; the union of
    their part files' records equals the one-process run's, and the
-   reduced counter vectors (and overlap histograms) are equal. The steal
-   is off (PANDASEQ_TPU_HYBRID=0): each process launches cand_join once
-   per dispatch group of its batches and no other kernel.
+   reduced counter vectors (and overlap histograms) are equal. No engine
+   or steal setting is pinned, so the default holds: each process
+   launches cand_join once per dispatch group of its batches and no
+   other kernel.
 6. Lanes and tools, each through the entry point a user calls:
-   - the hybrid host steal: emit_stream on the 500,000 pairs on the card
-     (PANDASEQ_TPU_ENGINE=tpu) with PANDASEQ_TPU_HYBRID in turns 0,
-     force, adaptive (unset), adaptive, force, 0: FASTA byte-identical to
+   - the hybrid host steal (opt-in): emit_stream on the 500,000 pairs on
+     the card (the default engine) with PANDASEQ_TPU_HYBRID in turns 0,
+     force, adaptive, adaptive, force, 0: FASTA byte-identical to
      phase 3's and STAT equal to the host engine's; over the 62 batches
      "0" launches cand_join 62 times and steals none, "force" launches
      nothing and steals 62, adaptive launches and steals 62 in all; -k 0
@@ -113,11 +116,11 @@ phase is caught.
      byte-identical, groups offloaded (a lane timeout raises), cand_join
      launched once per offloaded group and nothing else; pairs/s;
    - the tools: pandaseq-tpu-torch-diff (-- -- -t 0.9, and -- -A pear --
-     -A rdp_mle) on 10,000 pairs with the device engine (cand_join
+     -A rdp_mle) on 10,000 pairs with the default engine (cand_join
      launched in both passes) and the host engine: equal report and exit
-     status; pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, card
-     against host: FASTA and STAT equal, non-empty; pandaseq-tpu-torch-
-     checkid on one header.
+     status; pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, the
+     default engine against host: FASTA and STAT equal, non-empty;
+     pandaseq-tpu-torch-checkid on one header.
 7. The card's line, the kernels' JSON line, and the result line.
 """
 
@@ -213,8 +216,10 @@ WORK = {}
 # over the next power of two >= Lb plus log2 of that per reverse
 # emission (its binary search); counts COUNTS_WORD_OPS per 32-cell word
 # it walks, plus cand_join's sort and searches at num_kmers > 0;
-# shortlist ~10 per offset for its score, and per lane and round of the
-# top SL one compare per slot and 5 shuffle steps of 3; lut_sums
+# shortlist ~10 per offset for its score, 9 for its total-order key and
+# the two passes after the rounds (besto32 / best32, n_band), and per
+# lane and round of the top SL one compare per slot and 5 shuffle steps
+# of 3; lut_sums
 # LUT_CELL_OPS per cell it walks (lut_cells: forward pads included, which
 # it skips)
 DESIGN_OPS = {}
@@ -622,7 +627,7 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
             WORK[("shortlist", Lb)] = (B * (12 * O + 16 + 4 * (2 * SL + 4)),
                                        B * O, B * O)
             slots = -(-O // 32)
-            DESIGN_OPS[("shortlist", Lb)] = B * (10 * O + 32 * SL * (
+            DESIGN_OPS[("shortlist", Lb)] = B * (19 * O + 32 * SL * (
                 slots + 15))
             say_times(times, ("counts", "counts k=2", "counts rows",
                               "shortlist"), Lb)
@@ -632,15 +637,23 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
 
 def shortlist_edges(O, params, errs):
     """shortlist of every score kind against its twin on the edge rows of
-    tests/shortlist_rows.py (all -inf, -0.0 tying +0.0, equal scores
+    tests/shortlist_rows.py (all -inf, -0.0 beside +0.0, equal scores
     across lanes and words, fewer finite scores than SL, a stitch wrap),
-    with maxoverlap 0 and 150."""
+    with maxoverlap 0 and 150; on the zero row, the LUT kind also against
+    the JAX package's answer: top_k's order (+0.0 offsets, then -0.0 ones,
+    each ascending), argmax's besto32 (the first zero) and best32 with the
+    last zero's sign."""
     import numpy as np
     import torch
 
     from pandaseq_tpu_torch import tables
     from pandaseq_tpu_torch.ops import dense, fused2
-    from tests.shortlist_rows import edge_rows
+    from tests.shortlist_rows import ZERO_TIE_ROW, ZEROS, edge_rows
+
+    zeros = sorted(ZEROS)
+    tie_order = ([x + 1 for x in zeros if not np.signbit(ZEROS[x])]
+                 + [x + 1 for x in zeros if np.signbit(ZEROS[x])])
+    tie_best = int(np.float32(ZEROS[zeros[-1]]).view(np.int32))
 
     rows = {k: torch.from_numpy(v).to(DEVICE)
             for k, v in edge_rows(np.random.default_rng(O), O).items()}
@@ -655,13 +668,24 @@ def shortlist_edges(O, params, errs):
                       nn=float(tables.QUAL_NN_SIMPLE_BAYESIAN),
                       band=fused2.BAND_LUT if lut else fused2.BAND_COUNTS,
                       lutsum=rows["lutsum"] if lut else None)
-            err, ulp = shortlist_err(
-                dense.shortlist(*args, **kw), fused2.plain_shortlist(
-                    *args, **kw), "O=%d %s edge rows" % (O, kind))
+            got = dense.shortlist(*args, **kw)
+            err, ulp = shortlist_err(got, fused2.plain_shortlist(
+                *args, **kw), "O=%d %s edge rows" % (O, kind))
             errs["shortlist"] = max(errs["shortlist"], err)
             errs["shortlist_ulp"] = max(errs["shortlist_ulp"], ulp)
-    say("O=%d: shortlist == plain on the edge rows for %s"
-        % (O, "/".join(kinds)))
+            row = got[ZERO_TIE_ROW].cpu().tolist()
+            if lut and ([x & 1023 for x in row[:len(tie_order)]] != tie_order
+                        or row[2 * SL] != zeros[0] + 1
+                        or row[2 * SL + 3] != tie_best):
+                raise SystemExit("O=%d: the -0.0 / +0.0 row ships %s, "
+                                 "besto32 %d, best32 bits %#x; JAX: %s, %d, "
+                                 "%#x" % (O, [x & 1023 for x in row[:SL]],
+                                          row[2 * SL], row[2 * SL + 3] &
+                                          0xFFFFFFFF, tie_order, zeros[0] + 1,
+                                          tie_best & 0xFFFFFFFF))
+    say("O=%d: shortlist == plain on the edge rows for %s; the -0.0 / "
+        "+0.0 row in the JAX package's order %s" % (O, "/".join(kinds),
+                                                   tie_order))
 
 
 def counts_blocks(nt, fl, rl, Lb, k, full, what, errs):
@@ -838,23 +862,20 @@ def _norm_log(path):
 
 
 def run_cli(f1, f2, out_dir, engine, tag, extra=()):
-    """The port CLI on one engine ("cuda" pins the device engine,
-    "host" the native host engine, None pins nothing); returns
-    (seconds, reads, launch counts, fasta path, log lines, INFO ENGINE
-    line). The launch counts are set to 0 just before the run and read
-    just after it."""
+    """The port CLI on one engine: "cuda" is the default a user gets (no
+    engine or steal variable set), "host" pins the native host engine
+    and "auto" asks the probe; returns (seconds, reads, launch counts,
+    fasta path, log lines, INFO ENGINE line). The launch counts are set
+    to 0 just before the run and read just after it."""
     from pandaseq_tpu_torch.cli.main import main as cli_main
     from pandaseq_tpu_torch.ops import cand
 
     fa = os.path.join(out_dir, tag + ".fa")
     log = os.path.join(out_dir, tag + ".log")
-    os.environ.pop("PANDASEQ_TPU_HOST", None)
-    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # one launch per batch
-    if engine is None:
-        os.environ.pop("PANDASEQ_TPU_ENGINE", None)
-    else:
-        os.environ["PANDASEQ_TPU_ENGINE"] = \
-            "host" if engine == "host" else "tpu"
+    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_HYBRID",
+                 "PANDASEQ_TPU_OFFLOAD"):
+        os.environ.pop(name, None)
+    _env("PANDASEQ_TPU_ENGINE", None if engine == "cuda" else engine)
     cand.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli_main(["-f", f1, "-r", f2, "-w", fa, "-g", log, *extra])
@@ -863,6 +884,9 @@ def run_cli(f1, f2, out_dir, engine, tag, extra=()):
     if rc != 0:
         raise SystemExit("port CLI (%s) exited %d" % (engine, rc))
     lines, engine_line = _norm_log(log)
+    if engine == "cuda" and engine_line != "INFO\tENGINE\tcuda (default)":
+        raise SystemExit("the default CLI run logged %r, expected INFO "
+                         "ENGINE cuda (default)" % engine_line)
     reads = [int(m.group(1)) for m in
              (re.match(r"STAT\tREADS\t(\d+)$", ln) for ln in lines) if m]
     return dt, reads[-1], counts, fa, lines, engine_line
@@ -927,28 +951,29 @@ def compare_engines(label, f1, f2, sub, order, path, card, extra=(),
 
 
 def phase_probe(f1, f2, tmp):
-    """The measured engine probe on an empty cache: one unpinned default
-    run. Returns the INFO ENGINE line."""
+    """The measured engine probe on an empty cache: one run under
+    PANDASEQ_TPU_ENGINE=auto. Returns the INFO ENGINE line."""
     from pandaseq_tpu_torch import runtime
 
     sub = os.path.join(tmp, "probe")
     os.makedirs(sub)
     os.environ["PANDASEQ_TPU_CACHE"] = sub
     try:
-        _, reads, counts, _, _, line = run_cli(f1, f2, sub, None, "auto")
+        _, reads, counts, _, _, line = run_cli(f1, f2, sub, "auto", "auto")
     finally:
         os.environ.pop("PANDASEQ_TPU_CACHE")
+        os.environ.pop("PANDASEQ_TPU_ENGINE")
     m = re.match(r"INFO\tENGINE\t(cuda|host) \(probe: host ([\d.]+) ms, "
                  r"device ([\d.]+) ms\)$", line or "")
     if m is None:
-        raise SystemExit("unpinned run: no probe on the INFO ENGINE line "
+        raise SystemExit("auto run: no probe on the INFO ENGINE line "
                          "(%r)" % line)
     n_batches = math.ceil(reads / CLI_BATCH)
     want = expect_counts(SPARSE if m.group(1) == "cuda" else (), n_batches)
     for name in SPARSE:  # the probe's own device-side runs
         want[name] += runtime.PROBE_RUNS
     if counts != want:
-        raise SystemExit("unpinned run launched %s, expected %s (the "
+        raise SystemExit("auto run launched %s, expected %s (the "
                          "probe's %d runs included)"
                          % (counts, want, runtime.PROBE_RUNS))
     if not os.path.exists(os.path.join(sub, runtime.PROBE_CACHE)):
@@ -1126,10 +1151,11 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     sub = os.path.join(tmp, "mesh")
     os.makedirs(sub)
     out = os.path.join(sub, "run.fa")
-    # no engine pin: the mesh itself pins the device engine
-    os.environ.pop("PANDASEQ_TPU_ENGINE", None)
-    os.environ.pop("PANDASEQ_TPU_HOST", None)
-    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # the single-device launches
+    # no engine or steal pin: the mesh itself pins the device engine,
+    # the single-device engine is the default
+    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST",
+                 "PANDASEQ_TPU_HYBRID"):
+        os.environ.pop(name, None)
     cuda0 = "%s:0" % DEVICE
     host_stat = {}
     for path_name, k, path, meshes in (("sparse", 2, SPARSE, MESHES),
@@ -1143,9 +1169,10 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
             raise SystemExit("%s: host engine through emit_stream differs "
                              "from the CLI's FASTA" % label)
         cand.reset_launch_counts()
-        dt_1, sizes, counters = emit_run(
-            BatchAssembler(cfg, device=DEVICE, host_only=False), f1, f2, out)
-        if (cand.launch_counts() != mesh_launches(sizes, 1, 1, path)
+        asm = BatchAssembler(cfg, device=DEVICE)
+        dt_1, sizes, counters = emit_run(asm, f1, f2, out)
+        if (asm.engine_info != {"reason": "default"}
+                or cand.launch_counts() != mesh_launches(sizes, 1, 1, path)
                 or counters != host_counters
                 or not filecmp.cmp(out, fasta[path_name], shallow=False)):
             raise SystemExit("%s: the single-device cuda engine through "
@@ -1192,16 +1219,17 @@ def phase_distributed(tmp, card, f1, f2):
     run_distributed over gloo; scale_run holds the union of their part
     files' records to the one-process run's and the reduced counter
     vectors and histograms to each other and exits nonzero otherwise.
-    The steal is off (HYBRID=0), so every group of every process goes
-    through cand_join: one launch per dispatch group, no other kernel."""
+    Nothing is pinned: the default engine serves every group of every
+    process through cand_join, one launch per dispatch group, no other
+    kernel (the steal is opt-in)."""
     import inspect
 
     from pandaseq_tpu_torch.parallel import distributed
 
     sub = os.path.join(tmp, "scale")
-    env = dict(os.environ, PANDASEQ_TPU_ENGINE="tpu",
-               PANDASEQ_TPU_HYBRID="0")
-    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_OFFLOAD"):
+    env = dict(os.environ)
+    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HYBRID",
+                 "PANDASEQ_TPU_HOST", "PANDASEQ_TPU_OFFLOAD"):
         env.pop(name, None)
     group = inspect.signature(
         distributed.run_distributed).parameters["group"].default
@@ -1240,8 +1268,9 @@ def phase_distributed(tmp, card, f1, f2):
         raise SystemExit("scale_run launches (one process, then each "
                          "rank) %s, expected %s" % (got, want))
     say("scale_run --procs 2 --mode mux (run_distributed, 2 processes on "
-        "one card over gloo, HYBRID=0): %d records == the one process's, "
-        "reduced vectors equal (%s); rank pairs/s %s (%s pairs); one process "
+        "one card over gloo, default engine): %d records == the one "
+        "process's, reduced vectors equal (%s); rank pairs/s %s (%s "
+        "pairs); one process "
         "%.1f pairs/s (%.3f s), aggregate %.1f pairs/s, efficiency %.4f; "
         "launches one process %s, ranks %s; command %.3f s on %s" % (
             m["output_records_multi"], m["counters_vec"],
@@ -1296,12 +1325,11 @@ def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
         return asm, dt, launched
 
     _env("PANDASEQ_TPU_OFFLOAD", None)
-    os.environ["PANDASEQ_TPU_ENGINE"] = "tpu"
+    _env("PANDASEQ_TPU_ENGINE", None)  # the default: the device engine
     rates = {}
-    for hyb in ("0", "force", None, None, "force", "0"):
-        name = hyb or "adaptive"
+    for hyb in ("0", "force", "adaptive", "adaptive", "force", "0"):
         _env("PANDASEQ_TPU_HYBRID", hyb)
-        label = "%d 2x250 steal %s" % (E2E_PAIRS, name)
+        label = "%d 2x250 steal %s" % (E2E_PAIRS, hyb)
         asm, dt, launched = run(label, oracle.OracleConfig(), "sparse")
         steals = asm._host_steals
         if hyb == "0":
@@ -1314,7 +1342,7 @@ def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
         if not ok:
             raise SystemExit("%s: launched %s, %d batches stolen"
                              % (label, launched, steals))
-        rates.setdefault(name, []).append(dt)
+        rates.setdefault(hyb, []).append(dt)
         say("%s: FASTA == phase 3's, STAT == the host engine's; cand_join "
             "%d launches, %d batches stolen; %.1f pairs/s (%.3f s) on %s"
             % (label, launched["cand_join"], steals, E2E_PAIRS / dt, dt,
@@ -1324,8 +1352,8 @@ def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
     params = inspect.signature(distributed.run_distributed).parameters
     group, depth = params["group"].default, params["depth"].default
     n_groups = math.ceil(n_batches / group)
-    for hyb in ("0", None, None, "0") * 2:
-        name = "%s group %d" % (hyb or "adaptive", group)
+    for hyb in ("0", "adaptive", "adaptive", "0") * 2:
+        name = "%s group %d" % (hyb, group)
         _env("PANDASEQ_TPU_HYBRID", hyb)
         label = "%d 2x250 steal %s depth %d" % (E2E_PAIRS, name, depth)
         asm, dt, launched = run(label, oracle.OracleConfig(), "sparse",
@@ -1403,8 +1431,8 @@ def phase_tools(tmp, card, diff_data, primed):
     for args in (["--", "--", "-t", "0.9"],
                  ["--", "-A", "pear", "--", "-A", "rdp_mle"]):
         res = {}
-        for engine in ("tpu", "host"):
-            os.environ["PANDASEQ_TPU_ENGINE"] = engine
+        for engine in ("default", "host"):
+            _env("PANDASEQ_TPU_ENGINE", engine if engine == "host" else None)
             buf = io.StringIO()
             cand.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1414,27 +1442,26 @@ def phase_tools(tmp, card, diff_data, primed):
             dt = time.perf_counter() - t0
             launched = cand.launch_counts()
             # two passes (control, experiment) of n_diff batches each
-            want = dict(none, cand_join=2 * n_diff) if engine == "tpu" \
-                else none
+            want = dict(none, cand_join=2 * n_diff) \
+                if engine == "default" else none
             if launched != want:
                 raise SystemExit("diff %s (%s): launched %s, expected %s"
                                  % (" ".join(args), engine, launched, want))
             res[engine] = (rc, buf.getvalue(), dt)
-        if res["tpu"][:2] != res["host"][:2] or not res["tpu"][1]:
+        if res["default"][:2] != res["host"][:2] or not res["default"][1]:
             raise SystemExit("diff %s: the card's report (exit %d) differs "
                              "from the host engine's (exit %d)"
-                             % (" ".join(args), res["tpu"][0],
+                             % (" ".join(args), res["default"][0],
                                 res["host"][0]))
-        report = res["tpu"][1].splitlines()
+        report = res["default"][1].splitlines()
         say("pandaseq-tpu-torch-diff %s on %d pairs: card == host engine, "
             "exit %d, %d report lines (%s); card %.3f s, host %.3f s"
-            % (" ".join(args), DIFF_PAIRS, res["tpu"][0], len(report),
-               "; ".join(report[-6:]), res["tpu"][2], res["host"][2]))
+            % (" ".join(args), DIFF_PAIRS, res["default"][0], len(report),
+               "; ".join(report[-6:]), res["default"][2], res["host"][2]))
 
-    os.environ["PANDASEQ_TPU_HYBRID"] = "0"  # every batch on the card
     got = {}
-    for engine in ("tpu", "host"):
-        os.environ["PANDASEQ_TPU_ENGINE"] = engine
+    for engine in ("default", "host"):
+        _env("PANDASEQ_TPU_ENGINE", engine if engine == "host" else None)
         fa = os.path.join(tmp, "hang_%s.fa" % engine)
         log = os.path.join(tmp, "hang_%s.log" % engine)
         cand.reset_launch_counts()
@@ -1445,8 +1472,8 @@ def phase_tools(tmp, card, diff_data, primed):
         launched = cand.launch_counts()
         with open(fa, "rb") as fh:
             got[engine] = (rc, fh.read(), _norm_log(log)[0], dt, launched)
-    _env("PANDASEQ_TPU_HYBRID", None)
-    card_run, host_run = got["tpu"], got["host"]
+    _env("PANDASEQ_TPU_ENGINE", None)
+    card_run, host_run = got["default"], got["host"]
     if card_run[4]["cand_join"] == 0 or card_run[4] != dict(
             none, cand_join=card_run[4]["cand_join"]) or host_run[4] != none:
         raise SystemExit("hang: launched %s on the card, %s on the host "

@@ -32,20 +32,26 @@ device seams written for PyTorch:
   the sparse one returning the candidate mask; otherwise the
   single-device step runs on each dp row's share (``shard.run_dp``), or
   on the whole batch on the mesh's first device when ``B % dp != 0``;
-* engine resolution keeps the JAX package's order: constructor, then
-  ``PANDASEQ_TPU_ENGINE=host|tpu`` (``tpu``, the JAX package's name,
-  pins the device engine), then legacy ``PANDASEQ_TPU_HOST``, then a
-  mesh (which pins the device engine, reason ``mesh``), then the
-  measured probe (``runtime.pick_engine``).
+* engine resolution keeps the JAX package's order for the pins:
+  constructor, then ``PANDASEQ_TPU_ENGINE=host|tpu`` (``tpu``, the JAX
+  package's name, pins the device engine), then legacy
+  ``PANDASEQ_TPU_HOST``, then a mesh (which pins the device engine,
+  reason ``mesh``). Unpinned, it differs from the JAX engine on
+  purpose: a CUDA device serves the device engine (reason
+  ``default``), a CPU device the native host twin (``cpu-device``),
+  and the measured probe (``runtime.pick_engine``) runs only under
+  ``PANDASEQ_TPU_ENGINE=auto``.
 
 Grouped dispatch (``PANDASEQ_TPU_GROUP``, ``_dispatch_group``) is kept,
-and so are the threaded pipeline's two lanes of the JAX engine:
+and so are the threaded pipeline's two lanes of the JAX engine, both
+opt-in:
 
-* the hybrid host steal (``PANDASEQ_TPU_HYBRID``: adaptive unless set,
-  ``0`` off, ``force`` always): a group of the device engine goes to
-  the exact native twin ``psq_cand_mask`` on one stealer thread when
-  that thread is idle and the finalizer is behind (``_HostStealer``,
-  ``_dispatch_group_host``); a stolen group launches no kernel;
+* the hybrid host steal (``PANDASEQ_TPU_HYBRID``: off unless set,
+  ``adaptive`` or ``1`` the JAX engine's adaptive gate, ``force``
+  always): a group of the device engine goes to the exact native twin
+  ``psq_cand_mask`` on one stealer thread when that thread is idle and
+  the finalizer is behind (``_HostStealer``, ``_dispatch_group_host``);
+  a stolen group launches no kernel;
 * the device offload (opt-in, ``PANDASEQ_TPU_OFFLOAD=1``; ``force``
   also on a CPU device): with the host engine, up to ``CAP`` groups at a
   time run the candidate-list step on the device from two lane threads
@@ -848,13 +854,12 @@ class BatchAssembler:
         q = deque()  # (st, dev) in flight on device
         futs = deque()
 
-        # hybrid work-steal (PANDASEQ_TPU_HYBRID: default adaptive,
-        # "0" off, "force" always-steal for tests): when the finalize
-        # worker is visibly behind and the twin worker is idle, the next
-        # group's candidate masks are computed by the exact native host
-        # twin instead of the device, so spare host cores add
-        # throughput on top of the device lane
-        hyb = os.environ.get("PANDASEQ_TPU_HYBRID", "")
+        # hybrid work-steal, opt-in (PANDASEQ_TPU_HYBRID: unset or "0"
+        # off, "adaptive" or "1" the adaptive gate, "force" always
+        # steal): when the finalize worker is visibly behind and the
+        # twin worker is idle, the next group's candidate masks are
+        # computed by the exact native host twin instead of the device
+        hyb = os.environ.get("PANDASEQ_TPU_HYBRID", "0")
         # the stealer thread is created lazily on the first steal so the
         # common case (adaptive gate never fires) spawns no extra thread
         stealer_box = [None]
@@ -865,10 +870,10 @@ class BatchAssembler:
             return stealer_box[0]
 
         def route():
-            if hyb == "0":
-                return False
             if hyb == "force":
                 return True
+            if hyb not in ("adaptive", "1"):
+                return False
             s = stealer_box[0]
             return ((s is None or s.idle()) and len(futs) >= 2
                     and not futs[0].done())
@@ -1080,8 +1085,11 @@ class BatchAssembler:
         """Engine resolution, lazy at first dispatch. Priority:
         constructor host_only > PANDASEQ_TPU_ENGINE=host|tpu (tpu pins
         the device engine) > legacy PANDASEQ_TPU_HOST > a mesh (pins
-        the device engine) > the measured probe (runtime.pick_engine: the
-        device step against the native twin, cached per environment)."""
+        the device engine) > PANDASEQ_TPU_ENGINE=auto, the measured
+        probe (runtime.pick_engine: the device step against the native
+        twin, cached per environment) > the device type: a CUDA device
+        serves the device engine (reason ``default``), a CPU device the
+        native twin (``cpu-device``)."""
         if self._host_only is None:
             legacy = os.environ.get("PANDASEQ_TPU_HOST")
             env = os.environ.get("PANDASEQ_TPU_ENGINE", "")
@@ -1094,12 +1102,16 @@ class BatchAssembler:
             elif self.mesh is not None:
                 self._host_only = False  # sharded runs pin the device
                 self.engine_info = {"reason": "mesh"}
-            else:
+            elif env == "auto":
                 eng, info = runtime.pick_engine(
                     self.device, num_kmers=min(max(self.cfg.num_kmers, 1),
                                                2))
                 self._host_only = eng == "host"
                 self.engine_info = info
+            else:
+                self._host_only = self.device.type == "cpu"
+                self.engine_info = {"reason": "cpu-device"
+                                    if self._host_only else "default"}
         return self._host_only
 
     @property

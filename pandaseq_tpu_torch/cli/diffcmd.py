@@ -5,7 +5,7 @@ gained/lost/length/nucleotide/quality differences.
 The port's own copy of ``pandaseq_tpu/cli/diffcmd.py``: the same
 sectioned argv, report lines and exit status, with both passes on the
 port's ``BatchAssembler`` (device from ``PANDASEQ_TORCH_DEVICE``, default
-``cuda``, as the CLI takes it; engine from the pins or the probe), in
+``cuda``, as the CLI takes it; engine as the CLI resolves it), in
 1024-pair batches. Every pair is read through the Python reader
 (``io/fastq.read_pairs``) and held in memory, so inputs stay modest.
 

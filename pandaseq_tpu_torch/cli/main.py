@@ -8,7 +8,8 @@ the port's copies of ``pandaseq_tpu/cli/main.py``'s; ``run`` is that
 module's ``run`` with the device seams replaced: no JAX platform switch
 and no compilation cache,
 the port's ``BatchAssembler`` (device from ``PANDASEQ_TORCH_DEVICE``,
-default ``cuda``; engine from the pins or the measured probe), a
+default ``cuda``; engine from the pins, else the device: see
+assembler.py), a
 ``torch.profiler`` trace under ``PANDASEQ_TPU_PROFILE``, and a dispatch
 group of 1 by default
 (``PANDASEQ_TPU_GROUP`` still overrides): stacking batches amortized a
@@ -394,8 +395,9 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
         return 1
     prof = maybe_profile().__enter__()  # PANDASEQ_TPU_PROFILE=<dir>
     # provenance: which candidate-search engine serves this run (a pin,
-    # or the measured probe with its times) — args.c:515-531 analogue.
-    # The probe resolves here, before the first batch dispatches.
+    # the device's default, or under PANDASEQ_TPU_ENGINE=auto the
+    # measured probe with its times) — args.c:515-531 analogue. The
+    # engine resolves here, before the first batch dispatches.
     logger.write_str("INFO\tENGINE\t%s (%s)"
                      % (asm.engine, describe(asm.engine_info)))
     reporter = stats.StatReporter(logger)

@@ -21,11 +21,16 @@
 // Exactness traps: every f32 operation is rounded on its own, in the
 // JAX code's order (fused2.py:297-328), through __fmul_rn / __fadd_rn /
 // __fdiv_rn, which nvcc never contracts into a fused multiply-add; logf
-// is the full-precision one (no fast math). The ordering is (score
-// descending, offset ascending) with float comparison, so -0.0 ties
-// +0.0 and a row of -inf gives besto32 = 1 — the stable descending sort
-// of the plain version. flash divides integers with floor (not C's
-// truncation).
+// is the full-precision one (no fast math). The ties are the JAX code's:
+// the top SL are jax.lax.top_k's, (key descending, offset ascending) on
+// the total-order key of the f32 score (key_of: +0.0 above -0.0); besto32
+// is jnp.argmax's, the first offset whose score equals the maximum by
+// float comparison (-0.0 equals +0.0), and a row of -inf gives besto32 =
+// 1; best32 is what the JAX code's jnp.max compiles to (XLA folds it into
+// the argmax's reduction, whose value keeps the later of two equal
+// operands): the maximum with the sign of the LAST offset equal to it.
+// Both come from one ballot a slot after the rounds. flash divides
+// integers with floor (not C's truncation).
 //
 // Design: one warp per pair, WARPS pairs per block, no block barrier.
 // Lane l holds offsets x = l + 32k, k < K (O <= 32K; K a template
@@ -35,7 +40,9 @@
 // wrap __any_sync. Each of the SL rounds takes each lane's best untaken
 // score, then a 5-step xor-shuffle argmax on (score, offset), after
 // which every lane knows the winner and its lane marks it taken; lane r
-// keeps round r's winner for the output.
+// keeps round r's winner for the output. A slot holds its score's key,
+// not the score: the rounds compare integers, and the score comes back
+// from the key where it is needed (key_of is its own inverse).
 //
 // What bounds it on this card: its bytes, 12*O + 16 in and 4*(2*SL+4)
 // out a pair (26.0 MB for 8192 pairs at O=256, 7.8 us at 3.35 TB/s);
@@ -43,6 +50,7 @@
 // SL * (K + 10) operations a lane for the rounds.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -56,9 +64,20 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int KIND_EA_UTIL = 1, KIND_FLASH = 2, KIND_STITCH = 3,
               KIND_LUT = 4;
 
-// (score descending, index ascending)
-__device__ __forceinline__ bool ahead(float s, int i, float bs, int bi) {
-    return s > bs || (s == bs && i < bi);
+// IEEE total order as an int: the sign bit stays, the other bits of a
+// negative value flip, so -0.0 (0x80000000) becomes -1, just below +0.0's
+// 0. Its own inverse.
+__device__ __forceinline__ int key_of(int bits) {
+    return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float score_of_key(int key) {
+    return __int_as_float(key_of(key));
+}
+
+// (key descending, index ascending)
+__device__ __forceinline__ bool ahead(int k, int i, int bk, int bi) {
+    return k > bk || (k == bk && i < bi);
 }
 
 __device__ __forceinline__ int nvalid_of(int o2, int fl, int rl) {
@@ -141,7 +160,7 @@ shortlist_kernel(const int32_t *__restrict__ m,
     // ALL_BITS_IF_NONE: no k-mer hit in range examines the whole range
     const uint32_t cand = __any_sync(FULL, hit != 0u) ? hit : in_range;
 
-    float score[K];
+    int key[K];  // key_of the score
     int examined = 0;
     bool wrapped = false;
 #pragma unroll
@@ -160,7 +179,7 @@ shortlist_kernel(const int32_t *__restrict__ m,
                            pmismatch, nn);
             wrapped |= kind == KIND_STITCH && mv - mmv < 0;
         }
-        score[k] = s;
+        key[k] = key_of(__float_as_int(s));
         examined += __popc(__ballot_sync(FULL, c));
     }
     wrapped = __any_sync(FULL, wrapped);
@@ -170,47 +189,68 @@ shortlist_kernel(const int32_t *__restrict__ m,
 #pragma unroll
     for (int k = 0; k < K; ++k)
         if (lane + 32 * k >= O) taken |= 1u << k;
-    float my_v = -INFINITY, best = -INFINITY;
-    int my_i = 0, best_i = 0;
+    const int ninf_key = key_of(__float_as_int(-INFINITY));
+    int my_k = ninf_key, max_k = ninf_key;
+    int my_i = 0;
     for (int r = 0; r < SL; ++r) {
-        float bs = -INFINITY;
+        int bk = INT_MIN;  // below every key, -inf's included
         int bi = 0x7fffffff;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            if (!((taken >> k) & 1u) && ahead(score[k], lane + 32 * k, bs,
+            if (!((taken >> k) & 1u) && ahead(key[k], lane + 32 * k, bk,
                                                 bi)) {
-                bs = score[k];
+                bk = key[k];
                 bi = lane + 32 * k;
             }
         }
         for (int off = 16; off > 0; off >>= 1) {
-            const float s = __shfl_xor_sync(FULL, bs, off);
+            const int sk = __shfl_xor_sync(FULL, bk, off);
             const int i = __shfl_xor_sync(FULL, bi, off);
-            if (ahead(s, i, bs, bi)) {
-                bs = s;
+            if (ahead(sk, i, bk, bi)) {
+                bk = sk;
                 bi = i;
             }
         }
         if (lane == (bi & 31)) taken |= 1u << (bi >> 5);
         if (lane == r) {
-            my_v = bs;
+            my_k = bk;
             my_i = bi;
         }
-        if (r == 0) {
-            best = bs;
-            best_i = bi;
+        if (r == 0) max_k = bk;
+    }
+    const float top = score_of_key(max_k);
+
+    // the offsets equal to the maximum as floats: offsets grow with k,
+    // then with the lane, so besto32 is the lowest set lane of the first
+    // slot whose ballot is not empty, and best32's sign that of the
+    // highest set lane of the last. Slots past O hold -inf: they match only
+    // in a row of -inf, where slot 0 of lane 0 (offset 1) comes first.
+    int best_i = 0;
+    bool seen = false, last_neg = false;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+        const float s = score_of_key(key[k]);
+        const unsigned eq = __ballot_sync(FULL, s == top);
+        const unsigned neg = __ballot_sync(FULL, s == top && signbit(s));
+        if (eq) {
+            best_i = 32 * k + __ffs(eq) - 1;
+            if (!seen) last_neg = (neg >> (31 - __clz(eq))) & 1u;
+            seen = true;
         }
     }
+    const float best = copysignf(top, last_neg ? -1.0f : 1.0f);
 
     const float thr = __fsub_rn(best, band);
     int n_band = 0;
 #pragma unroll
-    for (int k = 0; k < K; ++k)  // -inf off the candidate set
-        n_band += __popc(__ballot_sync(
-            FULL, isfinite(score[k]) && score[k] >= thr));
+    for (int k = 0; k < K; ++k) {  // -inf off the candidate set
+        const float s = score_of_key(key[k]);
+        n_band += __popc(__ballot_sync(FULL, isfinite(s) && s >= thr));
+    }
 
     int32_t *orow = out + b * (2 * SL + 4);
     if (lane < SL) {
+        const float my_v = score_of_key(my_k);
         const bool live = my_v > -INFINITY;
         unsigned packed = 0u;
         if (live) {

@@ -303,15 +303,30 @@ def _f32(x, dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
+def total_order_key(x):
+    """int32 keys of f32 ``x`` that order as IEEE's total order: -0.0
+    below +0.0, and as floats elsewhere (the order of ``jax.lax.top_k``);
+    the sign bit stays, the other bits of a negative value flip."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def shortlist_from_counts(m, unk, candc, lutsum, flen, rlen, fo, ro, *,
                           O, SL, minoverlap, maxoverlap, algo_kind,
                           pmatch, pmismatch, nn, band):
     """f32 scoring, candidate-range rules and winner / top-SL packing
     from the integer diagonal sums. Returns [B, 2*SL + 4] int32 in the
     layout of ``assemble_shortlist_nt``. Every f32 operation is rounded
-    on its own, in the JAX code's order (no fused multiply-add); the
-    top SL come from a stable descending sort, so ties keep the lower
-    offset first, and ``besto32`` is the first maximum."""
+    on its own, in the JAX code's order (no fused multiply-add). The
+    ties are the JAX code's: the top SL are ``jax.lax.top_k``'s, a
+    stable descending sort on the total-order key of the f32 score
+    (+0.0 above -0.0, ties to the lower offset); ``besto32`` is
+    ``jnp.argmax``'s, the first offset equal to the maximum by float
+    comparison (so -0.0 equals +0.0). ``best32`` is what the JAX code's
+    ``jnp.max`` compiles to: XLA folds it into the argmax's reduction,
+    whose value keeps the later of two equal operands, so it is the
+    score of the LAST offset equal to the maximum (its sign, where the
+    maximum is a zero of both signs)."""
     dev = m.device
     f32 = torch.float32
     ninf = float("-inf")
@@ -370,12 +385,13 @@ def shortlist_from_counts(m, unk, candc, lutsum, flen, rlen, fo, ro, *,
         raise ValueError(f"unknown score kind {algo_kind!r}")
 
     scores = torch.where(cand_in, scores, _f32(ninf, dev))
-    # + 0.0 folds -0.0 into +0.0, so the sort sees the ties a float
-    # comparison sees, on every device
-    order = torch.sort(scores + 0.0, dim=1, descending=True,
+    order = torch.sort(total_order_key(scores), dim=1, descending=True,
                        stable=True).indices
-    besto32 = (order[:, 0] + 1).to(torch.int32)
-    best32 = scores.gather(1, order[:, :1])
+    is_max = scores == scores.gather(1, order[:, :1])
+    besto32 = (is_max.to(torch.int32).argmax(dim=1) + 1).to(torch.int32)
+    last = torch.where(is_max, torch.arange(O, device=dev), -1).amax(
+        dim=1, keepdim=True)
+    best32 = scores.gather(1, last)
     in_band = (cand_in & torch.isfinite(scores)
                & (scores >= best32 - _f32(band, dev)))
     n_band = in_band.sum(dim=1, dtype=torch.int32)

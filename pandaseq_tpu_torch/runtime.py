@@ -157,8 +157,9 @@ def pick_engine(device, L: int = 256, O: int = 256, num_kmers: int = 2,
                 B: int = 4096, refresh: bool = False,
                 lock_timeout: float = LOCK_TIMEOUT):
     """Measured choice between the device step and the native host twin
-    (the JAX package's runtime.pick_engine): the default must never lose
-    to its own fallback on a given machine.
+    (the JAX package's runtime.pick_engine). The engine asks for it only
+    under PANDASEQ_TPU_ENGINE=auto: unpinned, a CUDA device serves the
+    device engine without a probe (assembler.py _resolve_host_only).
 
     Returns (engine, info), engine "device" or "host". Shortcuts: no
     native library means the device (there is no host twin); a CPU

@@ -125,7 +125,6 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
     """200 synth pairs in 4 batches of one shape bucket: one launch of
     cand_join per dispatch (4 ungrouped, 2 in groups of 3)."""
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     out = {}
     for device, group, launches in (("cpu", 1, 0), ("cuda", 1, 4),
                                     ("cuda", 3, 2)):
@@ -232,7 +231,7 @@ def test_dense_kernels_equal_twins(dev, Lb, O):
 def test_shortlist_edge_rows_equal_plain(dev, O):
     """The warp-per-pair shortlist against its plain version on the rows
     a warp design gets wrong first (tests/shortlist_rows.py: all -inf,
-    -0.0 tying +0.0, equal scores across lanes and words, fewer finite
+    -0.0 beside +0.0, equal scores across lanes and words, fewer finite
     scores than SL, a stitch wrap), for every score kind, with
     maxoverlap 0 and > 0, at every per-lane slot count of the kernel."""
     rng = np.random.default_rng(O)
@@ -248,8 +247,13 @@ def test_shortlist_edge_rows_equal_plain(dev, O):
             got = dense.shortlist(*ints, **kw)
             assert torch.equal(got, fused2.plain_shortlist(*ints, **kw)), (
                 kind, maxoverlap)
-            if lut:  # the -0.0 at offset 4 ties +0.0 and goes first
-                assert int(got[ZERO_TIE_ROW, 0]) & 1023 == 4
+            if lut:  # top_k's order: +0.0 (offsets 8, 42) above -0.0;
+                # argmax's first zero (offset 4); best32 the last zero's
+                # sign (offset 71, a -0.0), as XLA's max on the CPU
+                row = got[ZERO_TIE_ROW].cpu()
+                assert [int(x) & 1023 for x in row[:5]] == [8, 42, 4, 41, 71]
+                assert int(row[16]) == 4
+                assert int(row[19]) == int(np.float32(-0.0).view(np.int32))
     torch.cuda.synchronize()
 
 
@@ -273,7 +277,6 @@ def test_engine_k0_on_card_equals_cpu(dev, monkeypatch, name):
     """-k 0: the dense kernels, once each per dispatch, give the bytes
     of the plain twins."""
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     cfg = oracle.OracleConfig()
     cfg.algorithm = oracle.make_algorithm(name, None)
     cfg.num_kmers = 0
@@ -452,7 +455,6 @@ def test_mesh_engine_on_card_equals_cpu(dev, monkeypatch, num_kmers):
     shortlist once per dp row (2); the last batch of 8 splits too."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     cfg = oracle.OracleConfig(num_kmers=num_kmers)
     out = {}
     for device in ("cpu", "cuda"):
@@ -482,7 +484,6 @@ def test_engine_on_named_card_and_across_cards(dev, monkeypatch):
     bytes; each launches the sparse path's cand_join."""
     from pandaseq_tpu_torch.parallel import shard
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")  # no steal: 1 launch each
     n = torch.cuda.device_count()
     runs = {"cpu": lambda: BatchAssembler(device="cpu"),
             "named": lambda: BatchAssembler(device="cuda:%d" % (n - 1))}

@@ -224,26 +224,24 @@ def _near_tie_rows(want):
     return ((d > 0) & (d <= tol) & (s[:, 1:] > -3e38)).any(axis=1)
 
 
-def _check_shortlist(got, want, zero_ties=()):
+def _check_shortlist(got, want):
     """The tolerances of the module docstring; returns the largest f32
-    difference. On the rows ``zero_ties``, whose top scores tie at -0.0
-    and +0.0, the order of the shipped offsets may differ: JAX's top_k
-    puts +0.0 first (a total order), the port compares floats, so -0.0
-    ties +0.0 and the smaller offset goes first."""
+    difference. Where both sides ship a zero score (the shipped scores
+    and ``best32``), its bits are equal: JAX's top_k orders +0.0 above
+    -0.0, and the port follows it."""
     got = got.numpy()
     want = np.asarray(want)
     assert got.shape == want.shape and got.dtype == want.dtype
     np.testing.assert_array_equal(got[:, 2 * SL:2 * SL + 3],
                                   want[:, 2 * SL:2 * SL + 3])
     near = _near_tie_rows(want)
-    for r in zero_ties:
-        np.testing.assert_array_equal(np.sort(got[r, :SL]),
-                                      np.sort(want[r, :SL]))
-        near[r] = True
     np.testing.assert_array_equal(got[~near, :SL], want[~near, :SL])
     cols = np.r_[SL:2 * SL, 2 * SL + 3]
-    gf = got[:, cols].view(np.float32).astype(np.float64)
-    wf = want[:, cols].view(np.float32).astype(np.float64)
+    gf = got[:, cols].view(np.float32)
+    wf = want[:, cols].view(np.float32)
+    zeros = (gf == 0) & (wf == 0)
+    np.testing.assert_array_equal(got[:, cols][zeros], want[:, cols][zeros])
+    gf, wf = gf.astype(np.float64), wf.astype(np.float64)
     np.testing.assert_allclose(gf, wf, rtol=2.0 ** -21, atol=2.0 ** -13)
     return np.abs(gf - wf).max()
 
@@ -338,7 +336,7 @@ def test_shortlist_edge_rows_equal_jax(kind, maxoverlap):
                           *map(jnp.asarray, lens), **kw)
     got = tf.plain_shortlist(*map(_t, ints + lens), **kw,
                              lutsum=_t(r["lutsum"]) if lut else None)
-    _check_shortlist(got, want, (ZERO_TIE_ROW,) if lut else ())
+    _check_shortlist(got, want)
     g = got.numpy()
     n = 2 * SL
     assert g[0, n] == 1 and g[0, n + 1] == 0  # empty range: first offset
@@ -352,10 +350,43 @@ def test_shortlist_edge_rows_equal_jax(kind, maxoverlap):
     if kind == "stitch":  # the first wrapped offset wins; n_band is 1
         assert g[2, n] == 51 and g[2, n + 2] == 1
     if lut:
-        # -0.0 ties +0.0: the five zeros in ascending offset, then -1.0
-        assert list(g[ZERO_TIE_ROW, :SL] & 1023) == \
-            [x + 1 for x in sorted(ZEROS)] + [3, 5, 6]
+        # jax.lax.top_k's order: the +0.0 offsets, then the -0.0 ones,
+        # each ascending, then -1.0; besto32 is argmax's first zero
+        pos = [x + 1 for x in sorted(ZEROS) if not np.signbit(ZEROS[x])]
+        neg = [x + 1 for x in sorted(ZEROS) if np.signbit(ZEROS[x])]
+        assert list(g[ZERO_TIE_ROW, :SL] & 1023) == pos + neg + [3, 5, 6]
+        assert pos == [8, 42] and neg == [4, 41, 71]
         assert g[ZERO_TIE_ROW, n] == 4 and g[ZERO_TIE_ROW, n + 2] == 5
+        # best32: the last zero's (offset 71, a -0.0), as XLA's max
+        assert g[ZERO_TIE_ROW, n + 3] == np.float32(-0.0).view(np.int32)
         # ten equal scores across lanes and words: ascending offsets
         assert list(g[4, :SL] & 1023) == [x + 1 for x in TIES[:SL]]
         assert g[4, n + 2] == len(TIES)
+
+
+@pytest.mark.parametrize("O", [128, 256, 512])
+def test_shortlist_zero_ties_equal_jax(O):
+    """Rows of LUT sums drawn from -0.0, +0.0, 2.5, -1.0 and -inf, so the
+    maximum ties across both zeros (or 2.5s) in many places: the whole
+    output equals the JAX package's bit for bit, the top SL in top_k's
+    order, argmax's besto32 and best32's sign."""
+    rng = np.random.default_rng(O)
+    B = 64
+    vals = np.float32([-0.0, 0.0, 2.5, -1.0, -np.inf])
+    lutsum = vals[rng.choice(5, (B, O), p=[0.04, 0.04, 0.01, 0.81, 0.1])]
+    lutsum[::4] = np.where(lutsum[::4] == 2.5, -1.0, lutsum[::4])
+    zeros = np.zeros((B, O), np.int32)
+    lens = np.full(B, O, np.int32)
+    fo = rng.integers(0, 3, B).astype(np.int32)
+    kw = dict(O=O, SL=SL, minoverlap=3, maxoverlap=0, algo_kind="pear",
+              pmatch=0.0, pmismatch=0.0, nn=NN, band=tf.BAND_LUT)
+    ints = [zeros, zeros, zeros]
+    lens4 = [lens, lens, fo, fo]
+    want = _jax_shortlist(*map(jnp.asarray, ints), jnp.asarray(lutsum),
+                          *map(jnp.asarray, lens4), **kw)
+    got = tf.plain_shortlist(*map(_t, ints + lens4), **kw,
+                             lutsum=_t(lutsum))
+    _eq(got, want)
+    best = got.numpy()[:, 2 * SL + 3]
+    assert (best == 0).any() and (best == np.float32(-0.0).view(
+        np.int32)).any()  # best32 of both signs

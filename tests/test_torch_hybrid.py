@@ -2,10 +2,12 @@
 steal.py on pandaseq_tpu_torch, the plain step on the CPU): a group
 whose candidate masks the exact native twin computes instead of the
 device step gives the same payload bytes, codes and counters; -k 0 never
-steals; the adaptive default is exact; and the forced run's payload
-equals the JAX package's for the same config."""
+steals; the steal is opt-in (unset or 0: off, where the adaptive gate
+steals); adaptive is exact; and the forced run's payload equals the JAX
+package's for the same config."""
 
 import os
+import time
 
 import pytest
 import torch
@@ -30,14 +32,19 @@ def _port_on_cpu(monkeypatch):
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")  # the device engine
 
 
-def _run(monkeypatch, hybrid, cfg=None, batch=384, group=2):
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", hybrid)
+def _run(monkeypatch, hybrid, cfg=None, batch=384, group=2, depth=4):
+    """emit_stream over the synth pairs with PANDASEQ_TPU_HYBRID set to
+    ``hybrid`` (unset where None)."""
+    if hybrid is None:
+        monkeypatch.delenv("PANDASEQ_TPU_HYBRID", raising=False)
+    else:
+        monkeypatch.setenv("PANDASEQ_TPU_HYBRID", hybrid)
     asm = BatchAssembler(cfg or oracle.OracleConfig(), L=512)
     reader = native.NativeBatchReader(F1, F2, policy="PRESENT", batch=batch,
                                       L=512)
     payload = bytearray()
     codes = []
-    for _, cs, pay in asm.emit_stream(reader, fmt="fasta", depth=4,
+    for _, cs, pay in asm.emit_stream(reader, fmt="fasta", depth=depth,
                                       group=group, threaded=True):
         payload += pay
         codes.extend(cs)
@@ -103,11 +110,41 @@ def test_steal_never_applies_to_host_engine_or_mesh(monkeypatch):
     assert not asm._host_route_ok([st])
 
 
+@pytest.mark.parametrize("hybrid", [None, "0", "adaptive", "1"])
+def test_steal_is_opt_in(monkeypatch, hybrid):
+    """With a finalizer slower than the device step the adaptive gate
+    fires; unset (the default) and "0" steal nothing and launch the
+    device step once per batch, "adaptive" and "1" steal."""
+    real_fin = BatchAssembler._finalize
+    real_launch = BatchAssembler._launch
+    launches = []
+
+    def slow(self, *a, **kw):
+        time.sleep(0.05)
+        return real_fin(self, *a, **kw)
+
+    def counting(self, *a, **kw):
+        launches.append(1)
+        return real_launch(self, *a, **kw)
+
+    monkeypatch.setattr(BatchAssembler, "_finalize", slow)
+    monkeypatch.setattr(BatchAssembler, "_launch", counting)
+    payload, codes, _, steals = _run(monkeypatch, hybrid, batch=16,
+                                     group=1, depth=1)
+    n_batches = len(codes) // 16 + (len(codes) % 16 > 0)
+    assert payload and n_batches == 13
+    if hybrid in (None, "0"):
+        assert steals == 0 and len(launches) == n_batches
+    else:
+        assert steals > 0 and len(launches) + steals == n_batches
+
+
 def test_adaptive_default_stays_exact(monkeypatch):
-    # the default (PANDASEQ_TPU_HYBRID unset) is adaptive: steals may or
-    # may not fire on this host; the output is identical either way
+    # adaptive (PANDASEQ_TPU_HYBRID=adaptive; opt-in, the JAX package's
+    # default): steals may or may not fire on this host; the output is
+    # identical either way
     pd, cd, ctd, _ = _run(monkeypatch, "0")
-    monkeypatch.delenv("PANDASEQ_TPU_HYBRID")
+    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "adaptive")
     asm = BatchAssembler(oracle.OracleConfig(), L=512)
     reader = native.NativeBatchReader(F1, F2, policy="PRESENT", batch=384,
                                       L=512)
