@@ -71,6 +71,18 @@ phase is caught.
      reason probe and the measured host and device ms; its launch check
      leaves out the probe's own runtime.PROBE_RUNS launches of cand_join.
    Pairs/s of both engines beside the card's line.
+3b. The installed layout: the files a wheel of this checkout ships (the
+   package's *.py and the package-data globs of pyproject.toml) copied
+   into a temporary directory outside the checkout, left unchanged (its
+   files read-only, and compared before and after), with HOME in another
+   temporary directory and PANDASEQ_TPU_CACHE unset. One process from
+   there builds the kernels and the native host library from scratch
+   under ~/.cache/pandaseq_tpu_torch (printing the seconds of each) and
+   runs the CLI's defaults on the 500,000 pairs with no engine pin: it
+   must log INFO ENGINE cuda (default), launch cand_join once per batch
+   (62) and nothing else (the counts set to 0 just before the run and
+   read just after, as phase 3 does), and write phase 3's FASTA byte for
+   byte.
 4. The mesh engine (parallel/shard.py) on one card: BatchAssembler with
    make_mesh(devices=["cuda:0"] * 4, dp=2, op=2) through emit_stream on
    the 500,000 pairs, for the defaults and -k 0, and with a dp-only mesh
@@ -127,10 +139,12 @@ phase is caught.
 from __future__ import annotations
 
 import filecmp
+import glob
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1019,6 +1033,146 @@ def phase_e2e(tmp, card):
     return counts, data["big"], fasta
 
 
+# the installed-layout run (phase 3b), in a process of its own whose
+# path holds only the copied package: builds, then the CLI's defaults
+_INSTALLED_RUN = r"""
+import json, sys, time
+import pandaseq_tpu_torch
+from pandaseq_tpu_torch.cli.main import main
+from pandaseq_tpu_torch.io import native
+from pandaseq_tpu_torch.ops import _build, cand
+t0 = time.perf_counter()
+kernels = _build.build()
+t1 = time.perf_counter()
+lib = native.build()
+t2 = time.perf_counter()
+if lib is None:
+    raise SystemExit("native host library: %s" % native.build_error)
+_build.load()
+cand.reset_launch_counts()
+t3 = time.perf_counter()
+rc = main(sys.argv[1:])
+run_s = time.perf_counter() - t3
+print("RESULT " + json.dumps({
+    "rc": rc, "launches": cand.launch_counts(),
+    "package": pandaseq_tpu_torch.__file__, "kernels": kernels,
+    "native": lib, "kernels_s": t1 - t0, "native_s": t2 - t1,
+    "run_s": run_s}), flush=True)
+"""
+
+
+def install_layout(site):
+    """Copies into ``site`` what a wheel of this checkout ships of the
+    port: its *.py files and its package data (the globs of
+    pyproject.toml). Returns the number of files."""
+    import tomllib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"][
+            "pandaseq_tpu_torch"]
+    pkg = os.path.join(ROOT, "pandaseq_tpu_torch")
+    files = glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)
+    for pattern in globs:
+        files += glob.glob(os.path.join(pkg, pattern))
+    for path in files:
+        dest = os.path.join(site, os.path.relpath(path, ROOT))
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        shutil.copy(path, dest)
+    return len(files)
+
+
+def _tree(root):
+    """Every path under ``root`` with its size and mtime."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        for name in dirnames + filenames:
+            st = os.lstat(os.path.join(dirpath, name))
+            out[os.path.relpath(os.path.join(dirpath, name), root)] = (
+                st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _set_mode(root, fmode, dmode):
+    for dirpath, _, filenames in os.walk(root):
+        os.chmod(dirpath, dmode)
+        for name in filenames:
+            os.chmod(os.path.join(dirpath, name), fmode)
+
+
+def phase_installed(card, f1, f2, fasta):
+    """Phase 3b: the port as a user installs it, on the card (see the
+    module doc)."""
+    top = tempfile.mkdtemp(prefix="psq_installed_")
+    try:
+        site, home, work = (os.path.join(top, d)
+                            for d in ("site", "home", "work"))
+        os.makedirs(home)
+        os.makedirs(work)
+        n_files = install_layout(site)
+        _set_mode(site, 0o444, 0o555)
+        before = _tree(site)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST",
+                            "PANDASEQ_TPU_HYBRID", "PANDASEQ_TPU_OFFLOAD",
+                            "PANDASEQ_TPU_CACHE")}
+        env.update(PYTHONPATH=site, HOME=home, PYTHONDONTWRITEBYTECODE="1",
+                   PANDASEQ_TORCH_DEVICE=DEVICE)
+        fa = os.path.join(work, "installed.fa")
+        log = os.path.join(work, "installed.log")
+        proc = subprocess.run(
+            [sys.executable, "-c", _INSTALLED_RUN, "-f", f1, "-r", f2,
+             "-w", fa, "-g", log], capture_output=True, text=True,
+            env=env, cwd=work, timeout=900)
+        if proc.returncode != 0 or "RESULT " not in proc.stdout:
+            raise SystemExit("installed layout: the run exited %d:\n%s"
+                             % (proc.returncode,
+                                (proc.stdout + proc.stderr)[-4000:]))
+        res = json.loads(proc.stdout.rsplit("RESULT ", 1)[1].splitlines()[0])
+        if res["rc"] != 0:
+            raise SystemExit("installed layout: the CLI exited %d"
+                             % res["rc"])
+        cache = os.path.join(home, ".cache", "pandaseq_tpu_torch")
+        for what in ("package", "kernels", "native"):
+            root = site if what == "package" else cache
+            if os.path.commonpath([res[what], root]) != root:
+                raise SystemExit("installed layout: %s %s is not under %s"
+                                 % (what, res[what], root))
+        if _tree(site) != before:
+            raise SystemExit("installed layout: the run wrote into %s"
+                             % site)
+        lines, engine_line = _norm_log(log)
+        if engine_line != "INFO\tENGINE\tcuda (default)":
+            raise SystemExit("installed layout: logged %r, expected INFO "
+                             "ENGINE cuda (default)" % engine_line)
+        reads = [int(m.group(1)) for m in
+                 (re.match(r"STAT\tREADS\t(\d+)$", ln) for ln in lines)
+                 if m][-1]
+        n_batches = math.ceil(reads / CLI_BATCH)
+        want = expect_counts(SPARSE, n_batches)
+        if res["launches"] != want:
+            raise SystemExit("installed layout: launched %s, expected %s"
+                             % (res["launches"], want))
+        if not filecmp.cmp(fa, fasta, shallow=False):
+            raise SystemExit("installed layout: FASTA differs from "
+                             "phase 3's")
+        say("installed layout: %d files in %s (read-only, unchanged), HOME "
+            "%s; from scratch: kernels %.3f s (%s), native host library "
+            "%.3f s (%s)" % (n_files, site, home, res["kernels_s"],
+                             os.path.relpath(res["kernels"], home),
+                             res["native_s"],
+                             os.path.relpath(res["native"], home)))
+        say("installed layout: defaults on %d pairs, INFO ENGINE cuda "
+            "(default), cand_join launched %d times (%d batches) and "
+            "nothing else, FASTA == phase 3's (%d bytes); run %.3f s, "
+            "%.1f pairs/s on %s"
+            % (reads, res["launches"]["cand_join"], n_batches,
+               os.path.getsize(fa), res["run_s"], reads / res["run_s"],
+               card))
+    finally:
+        if os.path.isdir(os.path.join(top, "site")):
+            _set_mode(os.path.join(top, "site"), 0o644, 0o755)
+        shutil.rmtree(top, ignore_errors=True)
+
+
 def emit_run(asm, f1, f2, out_path, group=1, depth=10):
     """The CLI's byte path driven from the library: emit_stream over the
     native reader with the _pre stage on the prefetch thread, at the
@@ -1548,6 +1702,7 @@ def main() -> int:
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
         counts, big, fasta = phase_e2e(tmp, card)
+        phase_installed(card, *big, fasta["sparse"])
         counts["lut"], host_stat = phase_mesh(tmp, card, *big, fasta,
                                               batch_256, luts)
         phase_distributed(tmp, card, *big)

@@ -5,9 +5,10 @@ output), with the device steps in hand-written CUDA kernels for NVIDIA
 Hopper (ops/cand.py, ops/dense.py; the default merge path's candidate
 search is one sort-join kernel, cand_join) and plain PyTorch versions
 for the CPU (ops/fused2.py). The host modules (native
-decoder and finalizer bindings, oracle, filters, I/O, tables) are the
-port's own copies of ``pandaseq_tpu``'s; this package imports neither
-JAX nor ``pandaseq_tpu``.
+decoder and finalizer bindings, oracle, filters, I/O, tables) and the
+C++ host engine they build (native/psq_io.cpp) are the port's own copies
+of ``pandaseq_tpu``'s; this package imports neither JAX nor
+``pandaseq_tpu``. Its builds go under ``_paths.build_root()``.
 
 Quick start::
 

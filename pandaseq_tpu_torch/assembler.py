@@ -266,7 +266,8 @@ def _compute_offsets_vec(threshold, penalty, reverse, nt, probs, notprobs,
                          seq_len, primer):
     """Vectorized panda_compute_offset over a batch of RAW-order arrays
     (offset.c:47-90) — numpy fallback when the native library is
-    unavailable (the hot path is native/psq_io.cpp:psq_compute_offsets).
+    unavailable (the hot path is the port's
+    native/psq_io.cpp:psq_compute_offsets).
 
     Builds the value the C loop computes at every check index (0..S-1):
     indices < primerlen read a circular-buffer slot still at -INFINITY
@@ -741,9 +742,8 @@ class BatchAssembler:
                  modules=(), need_p: bool | None = None, mesh=None,
                  host_only: bool | None = None, device=None):
         if _native.get_lib() is None:
-            raise RuntimeError(
-                "the native host library (native/psq_io.cpp) did not "
-                "build; the port needs g++, zlib and libbz2")
+            raise RuntimeError("the native host library did not build: %s"
+                               % _native.build_error)
         if mesh is None:
             self.device = runtime.resolve_device(device)
             # the single device as a 1x1 grid: _launch runs on it

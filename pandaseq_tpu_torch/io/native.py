@@ -1,16 +1,18 @@
 """ctypes bindings for the native C++ paired-FASTQ decoder
-(native/psq_io.cpp), with lazy on-demand compilation.
+(pandaseq_tpu_torch/native/psq_io.cpp), with lazy on-demand compilation.
 
 Yields `assembler.Batch` objects (already padded [B, L] tensors) so the
 hot path never materializes per-read Python objects; per-pair views are
 created lazily only for module prechecks / oracle fallbacks.
 
 The PyTorch port's copy of ``pandaseq_tpu/io/native.py``, unchanged but for its
-imports and where the library goes: it compiles the repository's
-``native/psq_io.cpp`` into ``build/native/`` (the JAX package builds into
-``native/``), under a per-process temporary name, so that processes that
-build at once do not write one file; the port imports nothing of
-``pandaseq_tpu``.
+imports, its source and where the library goes: it compiles the port's own
+copy of the host engine, ``pandaseq_tpu_torch/native/psq_io.cpp`` (shipped
+with the package), into ``native/`` under ``_paths.build_root()`` (``build/``
+in a checkout, ``~/.cache/pandaseq_tpu_torch`` once installed), under a
+per-process temporary name, so that processes that build at once do not
+write one file; when it cannot, ``build_error`` says why. The port imports
+nothing of ``pandaseq_tpu``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 import subprocess
 
 import numpy as np
+
+from .._paths import PKG, build_root
 
 # The pipeline calls OpenMP regions from several pthreads (decoder on
 # the prefetch thread, finalize on its worker, pack4/pear_test on the
@@ -31,9 +35,7 @@ import numpy as np
 os.environ.setdefault("OMP_WAIT_POLICY", "passive")
 os.environ.setdefault("GOMP_SPINCOUNT", "0")
 
-_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_HERE), "native", "psq_io.cpp")
-_SODIR = os.path.join(os.path.dirname(_HERE), "build", "native")
+_SRC = os.path.join(PKG, "native", "psq_io.cpp")
 
 MAX_LEN = 450
 
@@ -41,6 +43,7 @@ ERROR_CODES = {0: None, 1: "EOF", 2: "BADID", 3: "NOTPAIRED", 4: "BADNT",
                5: "BADSEQ", 6: "READLEN", 7: "NOQUAL"}
 
 _lib = None
+build_error = None  # why the last build() gave no library, or None
 
 
 def _find_bz2():
@@ -58,23 +61,34 @@ def build(force: bool = False) -> str | None:
     NEW file instead of truncating the old one in place, so a process
     that still has the previous build dlopen'd keeps valid mappings
     (an in-place `g++ -o` rewrite corrupts the old mapping and
-    segfaults any live caller), and a reload dlopens a fresh inode."""
+    segfaults any live caller), and a reload dlopens a fresh inode.
+    When it returns None, ``build_error`` names the cause: the missing
+    source, g++'s stderr, or the error of the directory or compiler."""
+    global build_error
+    build_error = None
     if not os.path.exists(_SRC):
+        build_error = "its source %s is missing" % _SRC
         return None
     import hashlib
     with open(_SRC, "rb") as fh:
         tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(_SODIR, f"_psq_io-{tag}.so")
+    sodir = os.path.join(build_root(), "native")
+    so = os.path.join(sodir, f"_psq_io-{tag}.so")
     if not force and os.path.exists(so):
         return so
     tmp = "%s.%d.tmp" % (so, os.getpid())
     cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17",
            "-o", tmp, _SRC, "-lz", _find_bz2()]
     try:
-        os.makedirs(_SODIR, exist_ok=True)
+        os.makedirs(sodir, exist_ok=True)
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, so)
-    except (subprocess.CalledProcessError, FileNotFoundError, OSError):
+    except subprocess.CalledProcessError as e:
+        build_error = "g++ failed on %s:\n%s" % (
+            _SRC, e.stderr.decode(errors="replace").strip())
+        return None
+    except OSError as e:  # no g++, or no writable build directory
+        build_error = "building %s into %s: %s" % (_SRC, sodir, e)
         return None
     return so
 

@@ -4,7 +4,8 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once, in parallel processes; the objects link into one shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. The build happens at first use, from
-the package's own sources, into ``build/kernels/`` beside the package.
+the package's own sources, into ``kernels/`` under ``_paths.build_root()``
+(``build/`` in a checkout, ``~/.cache/pandaseq_tpu_torch`` once installed).
 The library's name carries a hash of the flags and of every file under
 ``csrc/`` (the sources and the headers they share, ``join.cuh``); it is
 written to a temporary file and renamed, so a rebuild never rewrites a
@@ -23,11 +24,10 @@ import shutil
 import subprocess
 import threading
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG, "csrc")
+from .._paths import PKG, build_root
+
+_CSRC = os.path.join(PKG, "csrc")
 SOURCES = ("cand_join.cu", "counts.cu", "shortlist.cu", "lut_sums.cu")
-BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
-BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,10 +55,11 @@ def build() -> str:
             h.update(name.encode())
             with open(os.path.join(_CSRC, name), "rb") as fh:
                 h.update(fh.read())
-    so = os.path.join(BUILD_DIR, f"libpsq_cuda-{h.hexdigest()[:12]}.so")
+    build_dir = os.path.join(build_root(), "kernels")
+    so = os.path.join(build_dir, f"libpsq_cuda-{h.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{so}.{os.getpid()}"
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]

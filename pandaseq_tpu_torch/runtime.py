@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from .ops import _build
+from ._paths import build_root
 
 # device-side runs of one probe: one warm-up (the kernels' first build
 # lands there), then the best of PROBE_REPS timed runs on each side
@@ -45,12 +45,6 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError("unsupported device %r (cuda or cpu)" % str(name))
     return dev
-
-
-def _cache_dir() -> str:
-    """PANDASEQ_TPU_CACHE if set, else build/ beside the package (where
-    the kernels are built)."""
-    return os.environ.get("PANDASEQ_TPU_CACHE") or _build.BUILD_ROOT
 
 
 def _probe_key(device, L, O, num_kmers) -> str:
@@ -167,7 +161,8 @@ def pick_engine(device, L: int = 256, O: int = 256, num_kmers: int = 2,
     the CPU's engine). On a card the probe times both sides end to end
     on one synthetic batch (see _measure) and caches the verdict per
     (card, host, cores, L, O, k) in ``engine_probe_torch.json`` under
-    PANDASEQ_TPU_CACHE (default: build/ beside the package), so it runs
+    ``_paths.build_root()`` (PANDASEQ_TPU_CACHE, else build/ in a
+    checkout, else ~/.cache/pandaseq_tpu_torch), so it runs
     once per environment. Concurrent probes serialise on a flock whose
     wait raises TimeoutError after ``lock_timeout`` seconds. A device
     error inside the probe raises: nothing hides the device."""
@@ -179,7 +174,7 @@ def pick_engine(device, L: int = 256, O: int = 256, num_kmers: int = 2,
         return "host", {"reason": "cpu-device"}
 
     key = _probe_key(device, L, O, num_kmers)
-    cache_dir = _cache_dir()
+    cache_dir = build_root()
     cache = os.path.join(cache_dir, PROBE_CACHE)
     data = _read_cache(cache)
     if not refresh and key in data:

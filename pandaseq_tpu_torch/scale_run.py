@@ -29,8 +29,11 @@ fails raises, and the script exits nonzero.
         [--input F1 F2 ...] [--mode both|striped|mux]
 
 The data (``--pairs`` split into one file pair per process) is made by
-tests/golden/make_data.py under tests/data unless ``--input`` names
-existing FASTQ pairs. ``--batch`` is the CLI's batch by default. The
+the checkout's tests/golden/make_data.py under ``scale_data/`` in
+``_paths.build_root()`` unless ``--input`` names existing FASTQ pairs;
+an installed package has no generator and needs ``--input``. The work
+files go to ``scale_run/`` there unless ``--workdir`` says otherwise.
+``--batch`` is the CLI's batch by default. The
 JSON record (per-process pairs/s, aggregate pairs/s, scaling efficiency,
 the digests) is printed as the last line, and written to a file only
 where ``--out`` names one.
@@ -47,8 +50,11 @@ import socket
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = os.path.join(ROOT, "tests", "data")
+from ._paths import PKG, build_root
+
+ROOT = os.path.dirname(PKG)
+# the checkout's data generator; an installed package has none
+GENERATOR = os.path.join(ROOT, "tests", "golden", "make_data.py")
 BATCH = 8192  # the CLI's (cli/main.py, PANDASEQ_TPU_BATCH unset)
 WORKER_TIMEOUT = 3600  # seconds a worker may run
 
@@ -73,10 +79,14 @@ if torch.distributed.is_initialized():
 """
 
 
-def ensure_data(pairs: int, shards: int, data_dir: str = DATA):
+def ensure_data(pairs: int, shards: int, data_dir: str | None = None):
     """``shards`` file pairs of pairs/shards each (the striped
     data-parallel layout: process p owns stripe p), 2x300 reads from
-    420-560 bp amplicons, made once. Returns the (fwd, rev) paths."""
+    420-560 bp amplicons, made once under ``data_dir`` (default
+    ``scale_data/`` in the build root) by the checkout's generator.
+    Returns the (fwd, rev) paths."""
+    if data_dir is None:
+        data_dir = os.path.join(build_root(), "scale_data")
     per = pairs // shards
     os.makedirs(data_dir, exist_ok=True)
     out = []
@@ -87,10 +97,8 @@ def ensure_data(pairs: int, shards: int, data_dir: str = DATA):
             print("generating stripe %d: %d pairs 2x300 (one-time)..."
                   % (s, per), flush=True)
             subprocess.run(
-                [sys.executable, os.path.join(ROOT, "tests", "golden",
-                                              "make_data.py"),
-                 "--fast", "--pairs", str(per), "--read-len", "300",
-                 "--amp-min", "420", "--amp-max", "560",
+                [sys.executable, GENERATOR, "--fast", "--pairs", str(per),
+                 "--read-len", "300", "--amp-min", "420", "--amp-max", "560",
                  "--seed", str(11 + 7919 * s),
                  "--out-prefix", prefix], check=True,
                 stdout=subprocess.DEVNULL)
@@ -168,7 +176,7 @@ def run_procs(nproc, inputs, out_dir, threads, device, batch):
                 pin + [sys.executable, "-c", _WORKER, ROOT, out_dir,
                        str(batch), json.dumps([list(p) for p in inputs])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=wenv,
-                cwd=ROOT, text=True))
+                text=True))
         outs = [p.communicate(timeout=WORKER_TIMEOUT)[0] for p in procs]
     finally:
         for p in procs:
@@ -245,12 +253,17 @@ def main(argv=None) -> int:
                     metavar=("FWD", "REV"),
                     help="an existing FASTQ pair (repeat for stripes); "
                          "default: generated data")
-    ap.add_argument("--workdir", default=os.path.join(ROOT, "build",
-                                                      "scale_run"))
+    ap.add_argument("--workdir", default=None,
+                    help="default: scale_run/ in the build root")
     ap.add_argument("--batch", type=int, default=BATCH)
     args = ap.parse_args(argv)
     if args.procs < 2:
         ap.error("--procs must be at least 2")
+    if not args.input and not os.path.exists(GENERATOR):
+        ap.error("no --input FWD REV given, and no data generator (%s): "
+                 "an installed package needs --input" % GENERATOR)
+    if args.workdir is None:
+        args.workdir = os.path.join(build_root(), "scale_run")
 
     inputs = ([tuple(p) for p in args.input] if args.input
               else ensure_data(args.pairs, args.procs))

@@ -137,8 +137,9 @@ def test_make_batch_equal(L):
 
 
 def test_native_reader_batches_equal():
-    """The port's native decoder (its own build of native/psq_io.cpp)
-    against the JAX package's, batch by batch."""
+    """The port's native decoder (its build of its own copy,
+    pandaseq_tpu_torch/native/psq_io.cpp) against the JAX package's,
+    batch by batch."""
     got = list(native.NativeBatchReader(SYNTH + "_1.fastq",
                                         SYNTH + "_2.fastq", batch=64,
                                         L=512))

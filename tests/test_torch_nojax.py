@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and hides no CPU path: no module of
 ``pandaseq_tpu_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
-``pandaseq_tpu``; the CLI, a mesh step and ``run_distributed`` run
-byte-equal with both names unimportable; and a request for the card
-where there is none raises instead of running on the CPU."""
+``pandaseq_tpu``, and its builds read only its own sources; the CLI, a
+mesh step and ``run_distributed`` run byte-equal with both names
+unimportable; and a request for the card where there is none raises
+instead of running on the CPU."""
 
 import ast
 import glob
@@ -63,6 +64,20 @@ def test_import_scan_sees_a_forbidden_import(tmp_path):
                     "import pandaseq_tpu_torch\nfrom . import x\n")
     assert [m for m, _ in _imported(str(path))] == [
         "pandaseq_tpu_torch", "pandaseq_tpu"]
+
+
+@pytest.mark.parametrize("name", ["native._SRC", "_build._CSRC"])
+def test_build_sources_lie_in_the_port(name):
+    """The host engine's source and the kernels' sources are the port's
+    own files, not the repository root's ``native/``."""
+    from pandaseq_tpu_torch.io import native
+    from pandaseq_tpu_torch.ops import _build
+
+    path = os.path.realpath({"native._SRC": native._SRC,
+                             "_build._CSRC": _build._CSRC}[name])
+    pkg = os.path.realpath(os.path.join(ROOT, "pandaseq_tpu_torch"))
+    assert os.path.commonpath([path, pkg]) == pkg, path
+    assert os.path.exists(path)
 
 
 @pytest.mark.parametrize("extra", [[], ["-k", "0"]])
