@@ -133,7 +133,32 @@ phase is caught.
      status; pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, the
      default engine against host: FASTA and STAT equal, non-empty;
      pandaseq-tpu-torch-checkid on one header.
-7. The card's line, the kernels' JSON line, and the result line.
+7. The library entry point, pandaseq_tpu_torch.Assembler() with no
+   device argument (the card is the default device), and the CLI's
+   result-object path, each on the card's default engine against the
+   same call on the native host engine (PANDASEQ_TPU_ENGINE=host), with
+   the launch counts set to 0 just before each run and read just after:
+   - Assembler.stream (batches of 1024 in dispatch groups of 4) on the
+     500,000 pairs: the FASTA of its OK results (io.output.format_fasta)
+     byte-identical to the host engine's and to phase 3's CLI FASTA,
+     every counter getter, overlap_count and the fail callback's sids
+     equal, cand_join launched once per device step the engine counted
+     (_device_dispatches) and no other kernel; with num_kmers 0 on the
+     50,000 pairs: counts and shortlist once per device step; with a
+     registered custom algorithm (a renamed SimpleBayes) on 5,000 of
+     them: counts and shortlist once per device step, against the plain
+     versions on the host's CPU (a custom algorithm takes the dense
+     device step on every engine). Pairs/s of each run;
+   - assemble_batch on ReadPair lists of 1, 7 and 1024 pairs and on a
+     decoded Batch of 8192 rows: every field of every result equal to
+     the host engine's, one cand_join launch a call; assemble on 100
+     single pairs: equal, no launch;
+   - the CLI (batches of 8192, one launch each) with -p -q -a on the
+     50,000 primed pairs, with -C <tmp>/only_short.py:400 (a check
+     module without check_batch) on the 50,000 pairs and with -d rkm -N
+     on the 200-pair stream: FASTA byte-identical and the STAT/log line
+     sequence equal, cuda against host, cand_join once per batch.
+8. The card's line, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -158,6 +183,13 @@ E2E_PAIRS = 500000
 ALGO_PAIRS = 50000
 DIFF_PAIRS = 10000  # pandaseq-tpu-torch-diff holds every pair in memory
 PRIMED_PAIRS = 50000  # pandaseq-tpu-torch-hang's input
+# phase 7's sizes: the custom algorithm's stream (every pair replays
+# through the oracle on the host), assemble_batch's ReadPair lists and
+# decoded Batch, and assemble's single pairs
+CUSTOM_PAIRS = 5000
+BATCH_PAIRS = (1, 7, 1024)
+DECODED_ROWS = 8192
+SINGLE_PAIRS = 100
 # the primers of tests/test_oracle_primers.py; hang takes -P REV -Q FWD
 FWD_PRIMER = "GTGCCAGCMGCCGCGGTAA"
 REV_PRIMER = "GGACTACHVGGGTWTCTAAT"
@@ -898,9 +930,10 @@ def run_cli(f1, f2, out_dir, engine, tag, extra=()):
     if rc != 0:
         raise SystemExit("port CLI (%s) exited %d" % (engine, rc))
     lines, engine_line = _norm_log(log)
-    if engine == "cuda" and engine_line != "INFO\tENGINE\tcuda (default)":
+    if engine == "cuda" and \
+            engine_line != "INFO\tENGINE\t%s (default)" % DEVICE:
         raise SystemExit("the default CLI run logged %r, expected INFO "
-                         "ENGINE cuda (default)" % engine_line)
+                         "ENGINE %s (default)" % (engine_line, DEVICE))
     reads = [int(m.group(1)) for m in
              (re.match(r"STAT\tREADS\t(\d+)$", ln) for ln in lines) if m]
     return dt, reads[-1], counts, fa, lines, engine_line
@@ -1000,8 +1033,9 @@ def phase_probe(f1, f2, tmp):
 def phase_e2e(tmp, card):
     """Phase 3: cuda engine == native host engine, end to end; returns
     the launch counts of the first cuda run of each path (the main
-    paths': the default sparse path and the -k 0 dense path), the 500k
-    stream's FASTQ pair and its FASTA of each path."""
+    paths': the default sparse path and the -k 0 dense path), the
+    streams' FASTQ pairs ({"big", "algo", "n200"}) and the 500k stream's
+    FASTA of each path."""
     subs = {}
     started = {}
     for name, args in (
@@ -1030,7 +1064,7 @@ def phase_e2e(tmp, card):
     compare_engines("200-pair N/B-cliff -k 0", *data["n200"], subs["n200"],
                     ("cuda", "host"), DENSE, card, ("-k", "0"))
     phase_probe(*data["n200"], tmp)
-    return counts, data["big"], fasta
+    return counts, data, fasta
 
 
 # the installed-layout run (phase 3b), in a process of its own whose
@@ -1566,8 +1600,6 @@ def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
                                      ", ".join("%.3f" % x for x in t))
             for k, t in rates.items())))
     os.remove(out)
-    for path in fasta.values():
-        os.remove(path)
 
 
 def phase_tools(tmp, card, diff_data, primed):
@@ -1657,6 +1689,260 @@ def phase_tools(tmp, card, diff_data, primed):
         header, buf.getvalue().rsplit("generator = ", 1)[1].strip()))
 
 
+# phase 7's -C module: a check without check_batch (the CLI's result-
+# object path), keeping merged reads no longer than its argument
+ONLY_SHORT = """from pandaseq_tpu_torch.filters import Module
+
+api = 3
+
+
+def opener(args, logger):
+    limit = int(args) if args else 400
+    return Module("only_short", check=lambda res: res.sequence_length
+                  <= limit, args=args)
+"""
+# every field of a result the library hands out (NativeResult or
+# OracleResult), beside its sid, sequence and per-base probabilities
+RESULT_FIELDS = ("sequence_length", "quality", "overlap",
+                 "overlaps_examined", "overlap_mismatches", "degenerates",
+                 "estimated_overlap_probability", "slow", "forward_offset",
+                 "reverse_offset", "forward_length", "reverse_length")
+
+
+def result_fields(res):
+    """A result's fields, its sid as a string, its sequence's bytes and
+    its per-base log-probabilities bit for bit (None stays None)."""
+    import numpy as np
+
+    from pandaseq_tpu_torch.io import output
+
+    if res is None:
+        return None
+    out = {f: getattr(res, f) for f in RESULT_FIELDS}
+    out["sid"] = str(res.sid)
+    if res.sequence_ascii is not None or res.sequence_nt is not None:
+        out["sequence"] = output._seq_bytes(res)
+        out["p"] = np.asarray(res.sequence_p[:res.sequence_length],
+                              np.float64).tobytes()
+    return out
+
+
+def library(engine, device=None):
+    """pandaseq_tpu_torch.Assembler() as a library user makes it (no
+    device argument unless ``device``); "cuda" leaves the engine to its
+    default, "host" pins the native host engine."""
+    import pandaseq_tpu_torch
+
+    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_HYBRID",
+                 "PANDASEQ_TPU_OFFLOAD", "PANDASEQ_TPU_GROUP"):
+        os.environ.pop(name, None)
+    _env("PANDASEQ_TPU_ENGINE", "host" if engine == "host" else None)
+    if device is None:
+        return pandaseq_tpu_torch.Assembler()
+    return pandaseq_tpu_torch.Assembler(device=device)
+
+
+def api_stream(asm, files):
+    """One Assembler.stream run: (FASTA bytes of the OK results, the
+    fail callback's sids, every counter getter, device steps, launches,
+    seconds); the launch counts are set to 0 just before the run and
+    read just after it."""
+    from pandaseq_tpu_torch.io import output
+    from pandaseq_tpu_torch.ops import cand
+
+    failed = []
+    asm.set_fail_alignment(lambda pair: failed.append(str(pair.sid)))
+    cand.reset_launch_counts()
+    t0 = time.perf_counter()
+    fasta = b"".join(output.format_fasta(res)
+                     for res in asm.stream(*files))
+    dt = time.perf_counter() - t0
+    launched = cand.launch_counts()
+    counters = (asm.count, asm.ok_count, asm.low_quality_count,
+                asm.bad_read_count, asm.failed_alignment_count,
+                asm.no_forward_primer_count, asm.no_reverse_primer_count,
+                asm.slow_count, asm.overlap_count, asm.longest_overlap)
+    return (fasta, failed, counters, asm._engine._device_dispatches,
+            launched, dt)
+
+
+def compare_api(label, files, path, card, configure=lambda asm: None,
+                reference="host"):
+    """Assembler.stream on the card's default engine against the same
+    call on ``reference`` ("host": the native host engine; "cpu": the
+    plain versions on the host's CPU): FASTA, fail sids and counters
+    equal, the card's run launching each kernel of ``path`` once per
+    device step the engine made and nothing else. Returns the card's
+    FASTA."""
+    runs = {}
+    for engine in ("cuda", reference):
+        asm = library(engine, "cpu" if engine == "cpu" else None)
+        configure(asm)
+        runs[engine] = api_stream(asm, files)
+        # (a custom algorithm's dense step never asks for the engine:
+        # .engine resolves it here)
+        if engine == "cuda" and (
+                asm._engine.engine != DEVICE
+                or asm._engine.engine_info != {"reason": "default"}):
+            raise SystemExit("%s: Assembler() resolved to %s (%s)" % (
+                label, asm._engine.engine, asm._engine.engine_info))
+    _env("PANDASEQ_TPU_ENGINE", None)
+    got, want = runs["cuda"], runs[reference]
+    fasta, failed, counters, steps, launched, dt = got
+    n_batches = math.ceil(counters[0] / asm.batch)
+    if not fasta or got[:3] != want[:3]:
+        raise SystemExit("%s: the card's FASTA (%d bytes), fail sids (%d) "
+                         "or counters %s differ from %s's (%d bytes, %d, "
+                         "%s)" % (label, len(fasta), len(failed),
+                                  counters[:8], reference, len(want[0]),
+                                  len(want[1]), want[2][:8]))
+    none = dict.fromkeys(KERNELS, 0)
+    if not 0 < steps <= n_batches or launched != dict(
+            none, **dict.fromkeys(path, steps)):
+        raise SystemExit("%s: %d device steps over %d batches, launched %s"
+                         % (label, steps, n_batches, launched))
+    if want[4] != none or (reference == "host" and want[3]):
+        raise SystemExit("%s: the %s run made %d device steps, launched %s"
+                         % (label, reference, want[3], want[4]))
+    say("library %s: FASTA (%d bytes), %d fail-callback sids and every "
+        "counter equal to %s's (%s); %s launched once per device step "
+        "(%d steps for %d batches of %d), nothing else; cuda %.1f "
+        "pairs/s (%.3f s), %s %.1f pairs/s (%.3f s) on %s"
+        % (label, len(fasta), len(failed), reference, counters[:8],
+           "/".join(path), steps, n_batches, asm.batch, counters[0] / dt, dt,
+           reference, counters[0] / want[5], want[5], card))
+    return fasta
+
+
+def head_pairs(files, n, prefix):
+    """The first ``n`` records of a FASTQ pair, written to prefix_[12]."""
+    out = []
+    for i, path in enumerate(files, 1):
+        dest = "%s_%d.fastq" % (prefix, i)
+        with open(path) as src, open(dest, "w") as dst:
+            for _, line in zip(range(4 * n), src):
+                dst.write(line)
+        out.append(dest)
+    return out
+
+
+def batch_calls(files, card):
+    """assemble_batch on ReadPair lists of BATCH_PAIRS pairs and on a
+    decoded Batch of DECODED_ROWS rows, on the card and on the host
+    engine: every result field equal, one cand_join launch (one device
+    step) a call on the card, none on the host; then assemble on
+    SINGLE_PAIRS single pairs: equal, no launch."""
+    from pandaseq_tpu_torch.io import fastq as fq
+    from pandaseq_tpu_torch.io import native
+    from pandaseq_tpu_torch.ops import cand
+
+    none = dict.fromkeys(KERNELS, 0)
+    pairs = [p for p, _ in zip(fq.read_pairs(*files), range(1024))]
+    calls = [("%d ReadPair" % n, lambda n=n: pairs[:n])
+             for n in BATCH_PAIRS]
+    calls.append(("decoded Batch of %d" % DECODED_ROWS, lambda: next(iter(
+        native.NativeBatchReader(*files, batch=DECODED_ROWS, L=512)))))
+    for what, make in calls:
+        got = {}
+        for engine in ("cuda", "host"):
+            asm = library(engine)
+            batch = make()
+            cand.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = asm.assemble_batch(batch)
+            dt = time.perf_counter() - t0
+            got[engine] = ([(code, result_fields(r)) for code, r in res],
+                           cand.launch_counts(), dt)
+        _env("PANDASEQ_TPU_ENGINE", None)
+        card_res, launched, dt = got["cuda"]
+        n_ok = sum(code == "OK" for code, _ in card_res)
+        if card_res != got["host"][0] or not n_ok:
+            raise SystemExit("assemble_batch (%s): the card's results "
+                             "differ from the host engine's" % what)
+        if launched != dict(none, cand_join=1) or got["host"][1] != none:
+            raise SystemExit("assemble_batch (%s): launched %s on the "
+                             "card, %s on the host engine"
+                             % (what, launched, got["host"][1]))
+        say("library assemble_batch (%s): %d results, %d OK, every field "
+            "== the host engine's; cand_join launched once; card %.4f s, "
+            "host %.4f s" % (what, len(card_res), n_ok, dt, got["host"][2]))
+
+    singles = []
+    with open(files[0]) as f1, open(files[1]) as f2:
+        for _ in range(SINGLE_PAIRS):
+            rec = [(f1.readline(), f2.readline()) for _ in range(4)]
+            singles.append((rec[0][0][1:].split()[0],
+                            (rec[1][0].strip(), rec[3][0].strip()),
+                            (rec[1][1].strip(), rec[3][1].strip())))
+    got = {}
+    for engine in ("cuda", "host"):
+        asm = library(engine)
+        cand.reset_launch_counts()
+        out = [asm.assemble(*pair) for pair in singles]
+        got[engine] = ([(code, result_fields(r)) for r, code in out],
+                       cand.launch_counts())
+    _env("PANDASEQ_TPU_ENGINE", None)
+    if got["cuda"] != got["host"] or got["cuda"][1] != none:
+        raise SystemExit("assemble: the card's run (launched %s) differs "
+                         "from the host engine's" % got["cuda"][1])
+    say("library assemble: %d single pairs (%d OK), every field == the "
+        "host engine's, no kernel launched"
+        % (SINGLE_PAIRS, sum(code == "OK" for code, _ in got["cuda"][0])))
+
+
+def phase_library(tmp, card, data, primed, fasta):
+    """Phase 7: the library entry point, pandaseq_tpu_torch.Assembler,
+    and the CLI's result-object path (see the module doc)."""
+    from pandaseq_tpu_torch import algorithms, oracle
+
+    sub = os.path.join(tmp, "library")
+    os.makedirs(sub)
+    got = compare_api("stream %d 2x250" % E2E_PAIRS, data["big"], SPARSE,
+                      card)
+    with open(fasta, "rb") as fh:
+        if fh.read() != got:
+            raise SystemExit("library stream: FASTA differs from phase "
+                             "3's CLI run")
+    say("library stream %d 2x250: FASTA == phase 3's CLI FASTA" % E2E_PAIRS)
+    del got
+
+    def k0(asm):
+        asm.num_kmers = 0
+
+    compare_api("stream %d 2x250 num_kmers 0" % ALGO_PAIRS, data["algo"],
+                DENSE, card, k0)
+
+    class RenamedSimpleBayes(oracle.SimpleBayes):
+        name = "renamed_sb"
+
+    algorithms.register_algorithm("renamed_sb", RenamedSimpleBayes)
+
+    def custom(asm):
+        asm.algorithm = algorithms.make_algorithm("renamed_sb")
+
+    # a custom algorithm takes the dense device step on any engine (the
+    # host engine has no path for it): its reference is the plain
+    # versions on the host's CPU
+    compare_api("stream %d 2x250 custom algorithm renamed_sb" % CUSTOM_PAIRS,
+                head_pairs(data["algo"], CUSTOM_PAIRS,
+                           os.path.join(sub, "custom")),
+                DENSE, card, custom, reference="cpu")
+    batch_calls(data["algo"], card)
+
+    module = os.path.join(sub, "only_short.py")
+    with open(module, "w") as fh:
+        fh.write(ONLY_SHORT)
+    for label, files, extra in (
+            ("-p -q -a %d primed" % PRIMED_PAIRS, primed,
+             ("-p", FWD_PRIMER, "-q", REV_PRIMER, "-a")),
+            ("-C only_short.py:400 %d 2x250" % ALGO_PAIRS, data["algo"],
+             ("-C", module + ":400")),
+            ("-d rkm -N 200-pair N/B-cliff", data["n200"],
+             ("-d", "rkm", "-N"))):
+        compare_engines("library CLI result path " + label, *files, sub,
+                        ("cuda", "host"), SPARSE, card, extra)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1701,14 +1987,16 @@ def main() -> int:
         times, batch_256, luts = phase_kernels(tmp, errs, card)
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
-        counts, big, fasta = phase_e2e(tmp, card)
+        counts, data, fasta = phase_e2e(tmp, card)
+        big = data["big"]
         phase_installed(card, *big, fasta["sparse"])
         counts["lut"], host_stat = phase_mesh(tmp, card, *big, fasta,
                                               batch_256, luts)
         phase_distributed(tmp, card, *big)
         phase_lanes(tmp, card, *big, fasta, host_stat)
-        phase_tools(tmp, card, wait_data(tool_data["diff"]),
-                    wait_data(tool_data["primed"]))
+        primed = wait_data(tool_data["primed"])
+        phase_tools(tmp, card, wait_data(tool_data["diff"]), primed)
+        phase_library(tmp, card, data, primed, fasta["sparse"])
 
     kernels = []
     for name in KERNELS:

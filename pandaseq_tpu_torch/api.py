@@ -25,12 +25,14 @@ device as its one new argument; the port imports nothing of
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from . import filters as filters_mod
 from . import oracle
 from .assembler import BatchAssembler
+from .io import native
 from .nt import nt_from_ascii, nt_from_ascii_complement, nt_to_ascii
 
 
@@ -275,33 +277,10 @@ class Assembler:
         """Iterate OK results over a paired FASTQ input (the
         panda_assembler_next pull loop, batched underneath)."""
         engine = self._ensure_engine()
-        try:
-            from .io import native
-            if native.get_lib() is None:
-                raise RuntimeError
-            batches = native.NativeBatchReader(
-                fwd_path, rev_path, qualmin=qualmin, policy=policy,
-                batch=self.batch, L=self.L)
-        except (RuntimeError, OSError):
-            from .io import fastq as fq
-
-            def gen():
-                reader = fq.read_pairs(fwd_path, rev_path, qualmin=qualmin,
-                                       policy=policy)
-                done = False
-                while not done:
-                    chunk = []
-                    while len(chunk) < self.batch:
-                        try:
-                            chunk.append(next(reader))
-                        except (StopIteration, fq.StreamError):
-                            done = True
-                            break
-                    if chunk:
-                        yield chunk
-            batches = gen()
-        import os as _os
-        group = int(_os.environ.get("PANDASEQ_TPU_GROUP", "4"))
+        batches = native.NativeBatchReader(
+            fwd_path, rev_path, qualmin=qualmin, policy=policy,
+            batch=self.batch, L=self.L)
+        group = int(os.environ.get("PANDASEQ_TPU_GROUP", "4"))
         for pairs, results in engine.assemble_stream(batches,
                                                      group=group):
             for pair, (code, res) in zip(pairs, results):

@@ -828,6 +828,9 @@ class BatchAssembler:
         self._host_steals = 0  # batches work-stolen to the host twin
         self._offload_count = 0  # batches device-offloaded (host eng.)
         self._offload_groups = 0  # device steps of the offload lane
+        # device steps through _launch: one per batch, or one per
+        # stacked group (_dispatch_group)
+        self._device_dispatches = 0
 
     # ------------------------------------------------------------------
     def assemble_batch(self, pairs):
@@ -1219,6 +1222,7 @@ class BatchAssembler:
                       algo_kind=self._algo_kind, pmatch=self._pmatch,
                       pmismatch=self._pmismatch)
         arrays = [np.ascontiguousarray(a, dt) for a, dt in args]
+        self._device_dispatches += 1
         return _fetch(shard.run_dp(self._grid, lambda *a: step(*a, **kw),
                                    arrays))
 
