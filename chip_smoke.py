@@ -16,7 +16,12 @@ phase is caught.
    (the CLI's batch) and Lb=O in {256, 384, 512}, with CUDA-event times
    of each kernel and its twin, and the bound of each (the larger of its
    bytes over 3.35 TB/s and the operations its function needs over the
-   card's rate for their type; see WORK):
+   card's rate for their type; see WORK); cand_join, counts and the
+   shortlist also, with the same checks and times, at the shape buckets
+   (Lb, O) of phase 8's runs that these lack (SHAPE_ROWS): (128, 128) on
+   2x100 reads with N and (384, 256) on 2x300 reads whose R2 is cut to
+   200-250 bp, each batch's bucket first checked against the engine's
+   rule (batch_buckets):
    - cand_join, the candidate search of every path, exactly: on the
      4-bit packed plane and on the nibble plane with N, at num_kmers in
      {0, 1, 2, 3}, list and mask, over the whole plane (a mesh runs it
@@ -158,13 +163,38 @@ phase is caught.
      module without check_batch) on the 50,000 pairs and with -d rkm -N
      on the 200-pair stream: FASTA byte-identical and the STAT/log line
      sequence equal, cuda against host, cand_join once per batch.
-8. The card's line, the kernels' JSON line, and the result line.
+8. The read shapes of users' runs, each through the port CLI on the
+   card's default engine (INFO ENGINE cuda (default)) against the host
+   engine: FASTA byte-identical, STAT equal, each kernel of the path
+   launched once per batch and no other (the launch counts set to 0 just
+   before each run and read just after), pairs/s of both:
+   - v3v4_2x300, 500,000 MiSeq 2x300 V3-V4 pairs (400-480 bp amplicons;
+     the bucket Lb = O = 384), v3v4_r2cut, the same with each R2 cut to
+     200-250 bp (cut_r2: O = 256 < Lb = 384), and short_2x100, 200,000
+     2x100 pairs with N runs and B-cliffs (Lb = O = 128): each at the
+     defaults (cand_join) and at -k 0 (counts and shortlist);
+   - pooled, 40,960 pairs each of short_2x100, v3v4_2x300, phase 3's
+     2x250 and short_2x100 again (pool_streams): 20 batches whose
+     buckets run 128, 384, 256, 128;
+   - the first 100,000 pairs of v3v4_2x300 with -O 200 (O = 256 < Lb)
+     and with -O 700, whose O_full 640 passes the CLI's plane width 512:
+     every batch reroutes to the host twin, so the card's run launches
+     nothing; the same stream through emit_stream on the engine counts
+     the reroutes (_overflow_reroutes: every batch) and no device step,
+     and writes the CLI's FASTA;
+   - Assembler().stream over pooled on the card against the host engine
+     (as phase 7): its device steps (cand_join launches) equal the
+     prediction of the flush rule (predict_steps over the buckets of its
+     batches of 1024, at group 4: 40), and its FASTA the pooled CLI
+     run's.
+9. The card's line, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
 
 import filecmp
 import glob
+import itertools
 import json
 import math
 import os
@@ -198,6 +228,33 @@ SL = 8
 SHAPES = (256, 384, 512)  # Lb = O
 READ_SPEC = {256: ("250", "300", "460"), 384: ("380", "400", "700"),
              512: ("450", "500", "850")}  # read length, amplicon range
+# phase 2's rows at the buckets of phase 8's streams that SHAPES lacks:
+# {(Lb, O): (reads, make_data.py arguments)}; the R2-cut row's reverse
+# reads are cut as phase 8's v3v4_r2cut (cut_r2)
+SHAPE_ROWS = {
+    (128, 128): ("2x100 with N", ("--seed", "44", "--read-len", "100",
+                                  "--amp-min", "120", "--amp-max", "190",
+                                  "--n-run-rate", "0.1")),
+    (384, 256): ("R2-cut 2x300", ("--fast", "--seed", "43", "--read-len",
+                                  "300", "--amp-min", "400", "--amp-max",
+                                  "480"))}
+# phase 8's streams: the MiSeq 2x300 V3-V4 run, its reverse reads cut to
+# a length drawn from R2_CUT by numpy.random.default_rng(R2_CUT_SEED), a
+# 2x100 run with N runs and B-cliffs, a pooled run whose POOL_SEGMENT-
+# pair segments cross the buckets, and the first OLIMIT_PAIRS of the
+# 2x300 run under -O limits
+V3V4_PAIRS = 500000
+SHORT_PAIRS = 200000
+V3V4_ARGS = ("--fast", "--pairs", str(V3V4_PAIRS), "--seed", "43",
+             "--read-len", "300", "--amp-min", "400", "--amp-max", "480")
+SHORT_ARGS = ("--pairs", str(SHORT_PAIRS), "--seed", "44", "--read-len",
+              "100", "--amp-min", "120", "--amp-max", "190",
+              "--n-run-rate", "0.1")
+R2_CUT = (200, 250)
+R2_CUT_SEED = 13
+POOL_SEGMENT = 40960
+OLIMIT_PAIRS = 100000
+OLIMITS = ("200", "700")
 SPARSE = ("cand_join",)  # the main path
 DENSE = ("counts", "shortlist")  # -k 0 and custom algorithms
 LUT = DENSE + ("lut_sums",)  # the pear / rdp_mle library path
@@ -244,7 +301,7 @@ INT32_OPS_PER_S = 67e12 / 4
 # cycles of the spin kernel that each timed loop waits behind (~10 ms at
 # the H100's 1.98 GHz): longer than the host takes to queue the loop
 HOLD_CYCLES = 20_000_000
-# {(kernel, Lb): (bytes, int32 ops, f32 ops)} of the timed call, filled
+# {(kernel, Lb, O): (bytes, int32 ops, f32 ops)} of the timed call, filled
 # where it is timed. Bytes: each input read once and each output written
 # once. Operations: what the function needs on these inputs, whatever
 # the kernel's design:
@@ -257,7 +314,7 @@ HOLD_CYCLES = 20_000_000
 # - lut_sums: one f32 add per term after the first of each diagonal;
 # - shortlist: one f32 score and one compare per offset.
 WORK = {}
-# {(kernel, Lb): operations of the kernel's own design}, a diagnostic
+# {(kernel, Lb, O): operations of the kernel's own design}, a diagnostic
 # beside the bound: cand_join 2 per compare-exchange of its bitonic sort
 # over the next power of two >= Lb plus log2 of that per reverse
 # emission (its binary search); counts COUNTS_WORD_OPS per 32-cell word
@@ -303,6 +360,80 @@ def wait_data(started):
     if proc.wait(timeout=600):
         raise SystemExit("make_data.py exited %d" % proc.returncode)
     return files
+
+
+def cut_r2(files, prefix, lo=R2_CUT[0], hi=R2_CUT[1], seed=R2_CUT_SEED):
+    """A run whose reverse reads were cut, as users cut a 2x300 run's R2
+    quality tail: each R2 record's sequence and quality cut to a length
+    drawn from [lo, hi] by numpy.random.default_rng(seed), in record
+    order. Writes prefix_2.fastq; returns (the forward file, it)."""
+    import numpy as np
+    with open(files[1], "rb") as fh:
+        lines = fh.read().split(b"\n")
+    n = len(lines) // 4
+    cuts = np.random.default_rng(seed).integers(lo, hi + 1, size=n).tolist()
+    for i, cut in enumerate(cuts):
+        lines[4 * i + 1] = lines[4 * i + 1][:cut]
+        lines[4 * i + 3] = lines[4 * i + 3][:cut]
+    dest = prefix + "_2.fastq"
+    with open(dest, "wb") as fh:
+        fh.write(b"\n".join(lines))
+    return files[0], dest
+
+
+def pool_streams(parts, prefix):
+    """A pooled run: the records [start, start + n) of each (files,
+    start, n) of ``parts``, in order, written to prefix_[12].fastq."""
+    out = []
+    for i in (0, 1):
+        dest = "%s_%d.fastq" % (prefix, i + 1)
+        with open(dest, "w") as dst:
+            for files, start, n in parts:
+                with open(files[i]) as src:
+                    dst.writelines(itertools.islice(src, 4 * start,
+                                                    4 * (start + n)))
+        out.append(dest)
+    return tuple(out)
+
+
+def batch_buckets(files, batch, L=512, step=128):
+    """The (Lb, O) shape bucket of each ``batch``-pair batch of a FASTQ
+    pair under the engine's rule with no -O and no primers, read from
+    the records' lengths: O the step-rounded longest min(flen, rlen), Lb
+    the step-rounded longest read but at least O, both at most L."""
+    def up(n):
+        return -(-max(n, 1) // step) * step
+
+    out = []
+    with open(files[0]) as f1, open(files[1]) as f2:
+        while True:
+            lens = []
+            for _ in range(batch):
+                rec = [(f1.readline(), f2.readline()) for _ in range(4)]
+                if not rec[0][0]:
+                    break
+                lens.append((len(rec[1][0].rstrip("\r\n")),
+                             len(rec[1][1].rstrip("\r\n"))))
+            if not lens:
+                return out
+            O = min(L, up(max(min(a, b) for a, b in lens)))
+            out.append((min(L, max(up(max(max(a, b) for a, b in lens)), O)),
+                        O))
+
+
+def predict_steps(buckets, group):
+    """Device steps of a grouped stream under the engine's flush rule
+    (assembler.py _dispatch_stream): a group goes to the card when it
+    holds ``group`` batches, when the next batch's bucket differs, and at
+    the stream's end."""
+    steps = held = 0
+    for i, key in enumerate(buckets):
+        if held and key != buckets[i - 1]:
+            steps, held = steps + 1, 0
+        held += 1
+        if held == group:
+            steps, held = steps + 1, 0
+    return steps + (held > 0)
 
 
 def exact(got, want, what):
@@ -367,9 +498,9 @@ def paired_ms(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(name, Lb):
+def bound(name, Lb, O):
     """(bound ms, "bytes" or "operations") of the timed call (WORK)."""
-    nbytes, int_ops, f32_ops = WORK[(name, Lb)]
+    nbytes, int_ops, f32_ops = WORK[(name, Lb, O)]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -383,16 +514,22 @@ TIMED_AS = {"cand_join": "num_kmers 2, list", "counts": "num_kmers 0",
             "lut_sums": "pear"}
 
 
-def say_times(times, names, Lb):
+def shape(Lb, O):
+    """A row's shape as the lines name it: "Lb=O=256" or "Lb=384 O=256"."""
+    return "Lb=O=%d" % Lb if Lb == O else "Lb=%d O=%d" % (Lb, O)
+
+
+def say_times(times, names, Lb, O):
     for name in names:
-        ms, pms = times[(name, Lb)]
-        bms, by = bound(name, Lb)
-        design = DESIGN_OPS.get((name, Lb))
-        say("time %s (%s) B=%d Lb=O=%d: kernel %.4f ms, plain %.4f ms, "
+        key = (name, Lb, O)
+        ms, pms = times[key]
+        bms, by = bound(*key)
+        design = DESIGN_OPS.get(key)
+        say("time %s (%s) B=%d %s: kernel %.4f ms, plain %.4f ms, "
             "bound %.5f ms (%s: %d B, %d int32 + %d f32 ops needed%s), "
             "kernel at %.2f%% of the bound (CUDA events)"
-            % (name, TIMED_AS[name], B, Lb, ms, pms, bms, by,
-               *WORK[(name, Lb)],
+            % (name, TIMED_AS[name], B, shape(Lb, O), ms, pms, bms, by,
+               *WORK[key],
                "" if design is None else "; design ops %d" % design,
                100 * bms / ms))
 
@@ -402,7 +539,7 @@ def against_replaced(times, names, Lb, card):
     REFERENCE_CARD: exits if one takes more than MAX_RATIO of it; on
     another card prints "not compared"."""
     for name in names:
-        ms = times[(name, Lb)][0]
+        ms = times[(name, Lb, Lb)][0]
         old = REPLACED_MS[(name, Lb)]
         if card != REFERENCE_CARD:
             say("%s Lb=O=%d: %.4f ms; the replaced kernel's %.4f ms was "
@@ -466,13 +603,12 @@ def join_ops(Lb, rlen, O):
     return 2 * compare_exchanges * B + lg * emitted(rlen, O)
 
 
-def join_check(plane, fl, rl, Lb, k, nt, what, errs):
+def join_check(plane, fl, rl, Lb, O, k, nt, what, errs):
     """cand_join against plain_candidates_join, list and mask, exactly;
     returns the mask and list."""
     import torch
 
     from pandaseq_tpu_torch.ops import cand, fused2
-    O = Lb
     args = (plane, fl, rl, Lb, O, k)
     out = {}
     for mode in ("list", "mask"):
@@ -484,9 +620,11 @@ def join_check(plane, fl, rl, Lb, k, nt, what, errs):
     return out["mask"], out["list"]
 
 
-def sparse_kernels(Lb, batch, rng, errs, times):
-    """cand_join (packed plane) against its twin (and native.cand_mask)
-    on generated reads and random planes; timed on the reads."""
+def sparse_kernels(Lb, O, batch, rng, errs, times, with_n=False):
+    """cand_join (packed plane) against its twin on generated reads and
+    random planes, and against native.cand_mask on the reads' rows
+    without N (all of them unless ``with_n``: the engine sends rows with
+    N to the host twin, as this plane has no N); timed on the reads."""
     import numpy as np
     import torch
 
@@ -494,11 +632,11 @@ def sparse_kernels(Lb, batch, rng, errs, times):
     from pandaseq_tpu_torch.ops import cand, fused2
 
     dev = torch.device(DEVICE)
-    O = Lb
     plane_r, hasN = native.pack4(batch, Lb)
-    if hasN.any() or len(batch.sids) != B:
+    if (hasN.any() and not with_n) or len(batch.sids) != B:
         raise SystemExit("generated batch: %d rows, %d with N"
                          % (len(batch.sids), int(hasN.sum())))
+    clean = torch.from_numpy(~hasN)
     # random planes: a quarter poly-C, a quarter over a 2-code
     # alphabet (deep k-mer runs: rank drops, count > C lists)
     plane_x = rng.integers(-128, 128, size=(B, Lb // 2), dtype=np.int8)
@@ -515,29 +653,32 @@ def sparse_kernels(Lb, batch, rng, errs, times):
         rlen = torch.from_numpy(np.ascontiguousarray(
             rl_np, np.int32)).to(dev)
         for k in (0, 1, 2, 3):
-            what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
-            mask, lst = join_check(plane, fl, rlen, Lb, k, False, what, errs)
+            what = "%s k=%d %s" % (shape(Lb, O), k, tag)
+            mask, lst = join_check(plane, fl, rlen, Lb, O, k, False, what,
+                                   errs)
             over = int((lst[:, 0] > C).sum())
             if tag == "reads" and k:
                 host = torch.from_numpy(native.cand_mask(
                     batch, np.arange(B, dtype=np.int64), k, O))
-                exact(mask.cpu(), host, what + " cand_join vs cand_mask")
+                exact(mask.cpu()[clean], host[clean],
+                      what + " cand_join vs cand_mask")
             say("%s: cand_join == plain%s (list, mask), %d rows with "
                 "candidates, %d with count > %d"
-                % (what, " == native.cand_mask" if tag == "reads" and k
-                   else "", int((lst[:, 0] > 0).sum()), over, C))
+                % (what, " == native.cand_mask on the %d rows without N"
+                   % int(clean.sum()) if tag == "reads" and k else "",
+                   int((lst[:, 0] > 0).sum()), over, C))
         if tag == "reads":
-            times[("cand_join", Lb)] = paired_ms(
+            times[("cand_join", Lb, O)] = paired_ms(
                 lambda: fused2.plain_candidates_join(plane, fl, rlen, Lb, O,
                                                      2, "list", C),
                 lambda: cand.candidates_join(plane, fl, rlen, Lb, O, 2,
                                              "list", C))
             need = join_needed_ops(fl, rlen, Lb, O, cand.candidates_join(
                 plane, fl, rlen, Lb, O, 2, "list", C))
-            WORK[("cand_join", Lb)] = (B * (Lb // 2 + 8 + 2 * (C + 2)),
-                                       need, 0)
-            DESIGN_OPS[("cand_join", Lb)] = join_ops(Lb, rlen, O)
-            say_times(times, SPARSE, Lb)
+            WORK[("cand_join", Lb, O)] = (
+                B * (Lb // 2 + 8 + 2 * (C + 2)), need, 0)
+            DESIGN_OPS[("cand_join", Lb, O)] = join_ops(Lb, rlen, O)
+            say_times(times, SPARSE, Lb, O)
 
 
 def _score_params():
@@ -574,12 +715,12 @@ def _nt_random(rng, Lb):
     return (fwd | (rev << 4)).view(np.int8), flen, rlen
 
 
-def dense_kernels(Lb, batch, rng, params, errs, times, card):
+def dense_kernels(Lb, O, batch, rng, params, errs, times, card):
     """counts (full plane and row blocks) and shortlist against their
     twins, counts' k-mer hits against cand_join's mask, and
     assemble_candidates_nt against native.cand_mask; counts and
-    shortlist timed on the reads and held to the replaced kernels'
-    times."""
+    shortlist timed on the reads and, at the replaced kernels' shapes
+    (Lb = O in SHAPES), held to their times."""
     import numpy as np
     import torch
 
@@ -588,7 +729,6 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
     from pandaseq_tpu_torch.ops import dense, fused2
 
     dev = torch.device(DEVICE)
-    O = Lb
     nn = float(tables.QUAL_NN_SIMPLE_BAYESIAN)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     nt_r = batch.nt_packed()[:, :Lb]
@@ -597,18 +737,19 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
     cases = [("reads", nt_r, batch.flen, batch.rlen, zeros, zeros, 0),
              ("random", nt_x, fl_x, rl_x,
               rng.integers(0, 4, B).astype(np.int32),
-              rng.integers(0, 4, B).astype(np.int32), Lb - 56)]
+              rng.integers(0, 4, B).astype(np.int32), O - 56)]
     for tag, nt_np, fl_np, rl_np, fo_np, ro_np, maxoverlap in cases:
         nt, fl, rl, fo, ro = map(t, (nt_np, fl_np, rl_np, fo_np, ro_np))
         for k in (0, 1, 2, 3):
-            what = "Lb=O=%d k=%d %s" % (Lb, k, tag)
+            what = "%s k=%d %s" % (shape(Lb, O), k, tag)
             got = dense.counts(nt, fl, rl, Lb, O, k)
             want = fused2.plain_counts(nt, fl, rl, Lb, O, k)
             for g, w, name in zip(got, want, ("m", "unk", "candc")):
                 errs["counts"] = max(errs["counts"],
                                      exact(g, w, "%s %s" % (what, name)))
-            counts_blocks(nt, fl, rl, Lb, k, got, what, errs)
-            mask, _ = join_check(nt, fl, rl, Lb, k, True, what + " nt", errs)
+            counts_blocks(nt, fl, rl, Lb, O, k, got, what, errs)
+            mask, _ = join_check(nt, fl, rl, Lb, O, k, True, what + " nt",
+                                 errs)
             exact(fused2.pack_bits16(got[2] != 0, O), mask,
                   what + " counts' k-mer hits vs cand_join's mask")
             bands = []
@@ -631,14 +772,14 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
         if tag == "reads":
             rows = np.arange(B, dtype=np.int64)
             for k in (1, 2, 3):
-                mask = fused2.assemble_candidates_nt(nt, fl, rl, L=Lb,
+                mask = fused2.assemble_candidates_nt(nt, fl, rl, L=Lb, O=O,
                                                      num_kmers=k)
                 exact(mask.cpu(), torch.from_numpy(
                     native.cand_mask(batch, rows, k, O)),
-                    "Lb=O=%d k=%d assemble_candidates_nt vs cand_mask"
-                    % (Lb, k))
-            say("Lb=O=%d: assemble_candidates_nt == native.cand_mask at "
-                "k=1,2,3 (%d rows with N)" % (Lb, int(
+                    "%s k=%d assemble_candidates_nt vs cand_mask"
+                    % (shape(Lb, O), k))
+            say("%s: assemble_candidates_nt == native.cand_mask at "
+                "k=1,2,3 (%d rows with N)" % (shape(Lb, O), int(
                     ((batch.nt_packed()[:, :Lb].view(np.uint8) & 0x0F)
                      == 0x0F).any(axis=1).sum())))
             got = dense.counts(nt, fl, rl, Lb, O, 0)
@@ -647,38 +788,39 @@ def dense_kernels(Lb, batch, rng, params, errs, times, card):
                       algo_kind="counts", pmatch=pm, pmismatch=pmm, nn=nn,
                       band=fused2.BAND_COUNTS)
             for name, k in (("counts", 0), ("counts k=2", 2)):
-                times[(name, Lb)] = paired_ms(
+                key = (name, Lb, O)
+                times[key] = paired_ms(
                     lambda: fused2.plain_counts(nt, fl, rl, Lb, O, k),
                     lambda: dense.counts(nt, fl, rl, Lb, O, k))
                 nbytes = B * (Lb + 8 + 12 * O)
                 ops = 3 * live_cells(O) // 32
-                DESIGN_OPS[(name, Lb)] = COUNTS_WORD_OPS * counts_words(O)
+                DESIGN_OPS[key] = COUNTS_WORD_OPS * counts_words(O)
                 if k:
                     hits = int(dense.counts(nt, fl, rl, Lb, O, k)[2].sum())
                     ops += emitted(fl, Lb) + emitted(rl, O) + hits
-                    DESIGN_OPS[(name, Lb)] += join_ops(Lb, rl, O)
-                WORK[(name, Lb)] = (nbytes, ops, 0)
+                    DESIGN_OPS[key] += join_ops(Lb, rl, O)
+                WORK[key] = (nbytes, ops, 0)
             # the row block of one op cell of a (dp, 2) mesh (K10): it
             # reads the whole row and writes all O diagonals
-            times[("counts rows", Lb)] = paired_ms(
+            times[("counts rows", Lb, O)] = paired_ms(
                 lambda: fused2.plain_counts(nt, fl, rl, Lb, O, 0, 0, O // 2),
                 lambda: dense.counts(nt, fl, rl, Lb, O, 0, 0, O // 2))
             half = O // 2
-            WORK[("counts rows", Lb)] = (
+            WORK[("counts rows", Lb, O)] = (
                 B * (Lb + 8 + 12 * O),
                 3 * B * (half * O - half * (half - 1) // 2) // 32, 0)
-            times[("shortlist", Lb)] = paired_ms(
+            times[("shortlist", Lb, O)] = paired_ms(
                 lambda: fused2.plain_shortlist(*got, fl, rl, fo, ro, **kw),
                 lambda: dense.shortlist(*got, fl, rl, fo, ro, **kw))
-            WORK[("shortlist", Lb)] = (B * (12 * O + 16 + 4 * (2 * SL + 4)),
-                                       B * O, B * O)
+            WORK[("shortlist", Lb, O)] = (
+                B * (12 * O + 16 + 4 * (2 * SL + 4)), B * O, B * O)
             slots = -(-O // 32)
-            DESIGN_OPS[("shortlist", Lb)] = B * (19 * O + 32 * SL * (
+            DESIGN_OPS[("shortlist", Lb, O)] = B * (19 * O + 32 * SL * (
                 slots + 15))
             say_times(times, ("counts", "counts k=2", "counts rows",
-                              "shortlist"), Lb)
-            against_replaced(times, DENSE, Lb, card)
-    shortlist_edges(Lb, params, errs)
+                              "shortlist"), Lb, O)
+            if Lb == O and Lb in SHAPES:
+                against_replaced(times, DENSE, Lb, card)
 
 
 def shortlist_edges(O, params, errs):
@@ -734,7 +876,7 @@ def shortlist_edges(O, params, errs):
                                                    tie_order))
 
 
-def counts_blocks(nt, fl, rl, Lb, k, full, what, errs):
+def counts_blocks(nt, fl, rl, Lb, O, k, full, what, errs):
     """counts over the row blocks of op 2 and 4 against the twin, and
     summed against the full-plane kernel, exactly: with the k-mer hits
     of each block's rows, and with the mesh's hit rows (every row in the
@@ -742,7 +884,6 @@ def counts_blocks(nt, fl, rl, Lb, k, full, what, errs):
     import torch
 
     from pandaseq_tpu_torch.ops import dense, fused2
-    O = Lb
     for op in OPS:
         for mesh_hits in (False, True):
             sums = [torch.zeros_like(x) for x in full]
@@ -844,20 +985,20 @@ def lut_kernels(Lb, batch, rng, luts, errs, times, card):
             tm, tmm = (fused2.lut_table(x, dev) for x in luts["pear"][:2])
             args = (nt, fq, rq, fl, rl, O, "pear", tm, tmm,
                     luts["pear"][2])
-            times[("lut_sums", Lb)] = paired_ms(
+            times[("lut_sums", Lb, O)] = paired_ms(
                 lambda: fused2.plain_lut_sums(*args),
                 lambda: dense.lut_sums(*args))
-            WORK[("lut_sums", Lb)] = (B * (3 * Lb + 8 + 4 * O), 0,
-                                      live_cells(O) - B * O)
-            DESIGN_OPS[("lut_sums", Lb)] = LUT_CELL_OPS * lut_cells(O)
-            say_times(times, ("lut_sums",), Lb)
+            WORK[("lut_sums", Lb, O)] = (B * (3 * Lb + 8 + 4 * O), 0,
+                                         live_cells(O) - B * O)
+            DESIGN_OPS[("lut_sums", Lb, O)] = LUT_CELL_OPS * lut_cells(O)
+            say_times(times, ("lut_sums",), Lb, O)
             against_replaced(times, ("lut_sums",), Lb, card)
 
 
 def phase_kernels(tmp, errs, card):
-    """Phase 2: every kernel == its plain twin on the card; returns
-    ({(kernel, Lb): (ms, plain_ms)}, the Lb=256 batch with N, the LUT
-    parameters)."""
+    """Phase 2: every kernel == its plain twin on the card, at Lb = O in
+    SHAPES and at the rows of SHAPE_ROWS; returns ({(kernel, Lb, O): (ms,
+    plain_ms)}, the Lb=256 batch with N, the LUT parameters)."""
     import numpy as np
 
     from pandaseq_tpu_torch.assembler import make_batch
@@ -872,18 +1013,36 @@ def phase_kernels(tmp, errs, card):
         started[Lb] = (
             make_data(os.path.join(tmp, "k%d" % Lb), "--fast", *spec),
             make_data(os.path.join(tmp, "n%d" % Lb), *spec))
+    for (Lb, O), (_, spec) in SHAPE_ROWS.items():
+        started[(Lb, O)] = make_data(os.path.join(tmp, "r%d_%d" % (Lb, O)),
+                                     "--pairs", str(B), *spec)
     params = _score_params()
     luts = _lut_params()
     times = {}
     for Lb in SHAPES:
         fast, with_n = (wait_data(s) for s in started[Lb])
-        sparse_kernels(Lb, make_batch(list(fq.read_pairs(*fast)), Lb), rng,
-                       errs, times)
+        sparse_kernels(Lb, Lb, make_batch(list(fq.read_pairs(*fast)), Lb),
+                       rng, errs, times)
         batch_n = make_batch(list(fq.read_pairs(*with_n)), Lb)
-        dense_kernels(Lb, batch_n, rng, params, errs, times, card)
+        dense_kernels(Lb, Lb, batch_n, rng, params, errs, times, card)
         lut_kernels(Lb, batch_n, rng, luts, errs, times, card)
         if Lb == 256:
             batch_256 = batch_n
+    for (Lb, O), (reads, _) in SHAPE_ROWS.items():
+        files = wait_data(started[(Lb, O)])
+        if Lb != O:
+            files = cut_r2(files, os.path.join(tmp, "r%d_%d_cut" % (Lb, O)))
+        batch = make_batch(list(fq.read_pairs(*files)), Lb)
+        bucket = batch_buckets(files, B)
+        if bucket != [(Lb, O)]:
+            raise SystemExit("%s: the engine's bucket is %s, not (%d, %d)"
+                             % (reads, bucket, Lb, O))
+        say("%s: %s reads, the bucket of the engine's rule" % (
+            shape(Lb, O), reads))
+        sparse_kernels(Lb, O, batch, rng, errs, times, with_n=True)
+        dense_kernels(Lb, O, batch, rng, params, errs, times, card)
+    for O in sorted({O for _, O in SHAPE_ROWS} | set(SHAPES)):
+        shortlist_edges(O, params, errs)
     return times, batch_256, luts
 
 
@@ -988,9 +1147,11 @@ def compare_engines(label, f1, f2, sub, order, path, card, extra=(),
     else:
         os.remove(ref[0])
     rate = {e: ref[2] * len(t) / sum(t) for e, t in secs.items()}
-    say("%s: each cuda run launched %s once per batch (%d); cuda %.1f "
-        "pairs/s (runs %s s), host %.1f pairs/s (runs %s s) on %s"
-        % (label, "/".join(path), math.ceil(ref[2] / CLI_BATCH),
+    say("%s: each cuda run logged INFO ENGINE %s (default) and launched %s "
+        "(%d batches); cuda %.1f pairs/s (runs %s s), host %.1f pairs/s "
+        "(runs %s s) on %s"
+        % (label, DEVICE, "/".join(path) + " once per batch" if path
+           else "no kernel", math.ceil(ref[2] / CLI_BATCH),
            rate["cuda"], ", ".join("%.3f" % t for t in secs["cuda"]),
            rate["host"], ", ".join("%.3f" % t for t in secs["host"]),
            card))
@@ -1773,7 +1934,7 @@ def compare_api(label, files, path, card, configure=lambda asm: None,
     plain versions on the host's CPU): FASTA, fail sids and counters
     equal, the card's run launching each kernel of ``path`` once per
     device step the engine made and nothing else. Returns the card's
-    FASTA."""
+    FASTA and the device steps of the card's run."""
     runs = {}
     for engine in ("cuda", reference):
         asm = library(engine, "cpu" if engine == "cpu" else None)
@@ -1811,7 +1972,7 @@ def compare_api(label, files, path, card, configure=lambda asm: None,
         % (label, len(fasta), len(failed), reference, counters[:8],
            "/".join(path), steps, n_batches, asm.batch, counters[0] / dt, dt,
            reference, counters[0] / want[5], want[5], card))
-    return fasta
+    return fasta, steps
 
 
 def head_pairs(files, n, prefix):
@@ -1897,8 +2058,8 @@ def phase_library(tmp, card, data, primed, fasta):
 
     sub = os.path.join(tmp, "library")
     os.makedirs(sub)
-    got = compare_api("stream %d 2x250" % E2E_PAIRS, data["big"], SPARSE,
-                      card)
+    got, _ = compare_api("stream %d 2x250" % E2E_PAIRS, data["big"], SPARSE,
+                         card)
     with open(fasta, "rb") as fh:
         if fh.read() != got:
             raise SystemExit("library stream: FASTA differs from phase "
@@ -1943,6 +2104,94 @@ def phase_library(tmp, card, data, primed, fasta):
                         ("cuda", "host"), SPARSE, card, extra)
 
 
+def phase_shapes(tmp, card, started, big):
+    """Phase 8: the read shapes of users' runs (see the module doc):
+    each stream through the port CLI on the card's default engine
+    against the host engine, the -O 700 reroute through the engine, and
+    Assembler.stream over the pooled run against the prediction of the
+    flush rule."""
+    import inspect
+
+    from pandaseq_tpu_torch import api, oracle
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    from pandaseq_tpu_torch.ops import cand
+
+    sub = os.path.join(tmp, "shapes")
+    os.makedirs(sub)
+    v3v4, short = (wait_data(started[n]) for n in ("v3v4", "short"))
+    r2cut = cut_r2(v3v4, os.path.join(sub, "v3v4_r2cut"))
+    pooled = pool_streams([(short, 0, POOL_SEGMENT), (v3v4, 0, POOL_SEGMENT),
+                           (big, 0, POOL_SEGMENT),
+                           (short, POOL_SEGMENT, POOL_SEGMENT)],
+                          os.path.join(sub, "pooled"))
+    olimit = head_pairs(v3v4, OLIMIT_PAIRS, os.path.join(sub, "olimit"))
+    streams = {"v3v4_2x300": v3v4, "v3v4_r2cut": r2cut,
+               "short_2x100": short}
+    for name, files in streams.items():
+        say("%s: buckets (Lb, O) of its CLI batches %s" % (
+            name, sorted(set(batch_buckets(files, CLI_BATCH)))))
+    turns = ("cuda", "host")
+    for name, files in streams.items():
+        compare_engines(name, *files, sub, turns, SPARSE, card)
+        compare_engines(name + " -k 0", *files, sub, turns, DENSE, card,
+                        ("-k", "0"))
+    say("pooled: CLI batch buckets %s" % batch_buckets(pooled, CLI_BATCH))
+    _, pooled_fa = compare_engines("pooled", *pooled, sub, turns, SPARSE,
+                                   card, keep=True)
+    for limit in OLIMITS:
+        compare_engines("olimit -O " + limit, *olimit, sub, turns,
+                        SPARSE if limit == "200" else (), card,
+                        ("-O", limit), keep=limit == "700")
+    # -O 700: O_full 640 passes the CLI's plane width L = 512, so every
+    # batch reroutes to the host twin (the reference's own routing); the
+    # engine counts the reroutes
+    cli_fa = os.path.join(sub, "olimit_O_700.fa")
+    out = os.path.join(sub, "olimit_700_engine.fa")
+    _env("PANDASEQ_TPU_ENGINE", None)
+    asm = BatchAssembler(oracle.OracleConfig(maxoverlap=int(OLIMITS[1])),
+                         device=DEVICE)
+    cand.reset_launch_counts()
+    dt, sizes, _ = emit_run(asm, *olimit, out)
+    launched = cand.launch_counts()
+    if (launched != dict.fromkeys(KERNELS, 0) or asm._device_dispatches
+            or asm._overflow_reroutes != len(sizes)
+            or not filecmp.cmp(out, cli_fa, shallow=False)):
+        raise SystemExit("olimit -O 700 through the engine: launched %s, %d "
+                         "device steps, %d of %d batches rerouted, FASTA "
+                         "%s the CLI's" % (
+                             launched, asm._device_dispatches,
+                             asm._overflow_reroutes, len(sizes),
+                             "==" if filecmp.cmp(out, cli_fa, shallow=False)
+                             else "!="))
+    say("olimit -O 700 through the engine (%s, reason %s): %d of %d batches "
+        "rerouted to the host twin (O_full 640 > L 512), 0 device steps, "
+        "no kernel launched, FASTA == the CLI's; %.1f pairs/s (%.3f s) on %s"
+        % (asm.engine, asm.engine_info["reason"], asm._overflow_reroutes,
+           len(sizes), OLIMIT_PAIRS / dt, dt, card))
+    for path in (out, cli_fa):
+        os.remove(path)
+
+    batch = inspect.signature(api.Assembler).parameters["batch"].default
+    group = int(os.environ.get("PANDASEQ_TPU_GROUP", "4"))
+    buckets = batch_buckets(pooled, batch)
+    want = predict_steps(buckets, group)
+    say("library stream pooled: %d batches of %d in segments %s; predicted "
+        "by the flush rule at group %d: %d device steps" % (
+            len(buckets), batch, [(key, len(list(run))) for key, run in
+                                  itertools.groupby(buckets)], group, want))
+    got, steps = compare_api("stream pooled", pooled, SPARSE, card)
+    with open(pooled_fa, "rb") as fh:
+        if fh.read() != got:
+            raise SystemExit("library stream pooled: FASTA differs from the "
+                             "pooled CLI run's")
+    if steps != want:
+        raise SystemExit("library stream pooled: %d device steps, predicted "
+                         "%d" % (steps, want))
+    say("library stream pooled: %d device steps == predicted, cand_join %d "
+        "launches, FASTA == the pooled CLI run's (%d bytes)"
+        % (steps, steps, len(got)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1984,6 +2233,11 @@ def main() -> int:
                                 str(PRIMED_PAIRS), "--seed", "7",
                                 "--fwd-primer", FWD_PRIMER,
                                 "--rev-primer", REV_PRIMER)}
+        # phase 8's runs, made likewise
+        shape_data = {
+            "v3v4": make_data(os.path.join(tmp, "v3v4_2x300"), *V3V4_ARGS),
+            "short": make_data(os.path.join(tmp, "short_2x100"),
+                               *SHORT_ARGS)}
         times, batch_256, luts = phase_kernels(tmp, errs, card)
         say("shortlist f32 columns: max %d ulp, max abs err %r from the "
             "twin" % (errs["shortlist_ulp"], errs["shortlist"]))
@@ -1997,11 +2251,12 @@ def main() -> int:
         primed = wait_data(tool_data["primed"])
         phase_tools(tmp, card, wait_data(tool_data["diff"]), primed)
         phase_library(tmp, card, data, primed, fasta["sparse"])
+        phase_shapes(tmp, card, shape_data, big)
 
     kernels = []
     for name in KERNELS:
-        ms, pms = times[(name, 256)]
-        bms, by = bound(name, 256)
+        ms, pms = times[(name, 256, 256)]
+        bms, by = bound(name, 256, 256)
         path = ("sparse" if name in SPARSE
                 else "lut" if name == "lut_sums" else "dense")
         # no single PyTorch call computes any of these functions

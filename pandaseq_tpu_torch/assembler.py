@@ -831,6 +831,9 @@ class BatchAssembler:
         # device steps through _launch: one per batch, or one per
         # stacked group (_dispatch_group)
         self._device_dispatches = 0
+        # batches whose overlap axis overflows the device plane (O_full
+        # > L), rerouted to the host twin by _overflow_host: no launch
+        self._overflow_reroutes = 0
 
     # ------------------------------------------------------------------
     def assemble_batch(self, pairs):
@@ -1255,6 +1258,7 @@ class BatchAssembler:
         same reference-faithful mask."""
         st["O"] = st["O_full"]
         st["plane_kind"] = 1
+        self._overflow_reroutes += 1
         return self._sparse_host(st)
 
     def _dispatch(self, st):
