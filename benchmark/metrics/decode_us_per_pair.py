@@ -1,0 +1,9 @@
+"""decode_us_per_pair: the wall time of the traced run's ``decode`` spans
+(harness/spans.py), summed over every thread, per pair read."""
+
+
+def read(run):
+    if run.spans is None or not run.pairs:
+        return None
+    total = run.spans.total("decode")
+    return total / run.pairs * 1e6 if total else None
