@@ -94,7 +94,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import oracle, runtime
+from . import oracle, runtime, tracing
 from .io import native as _native
 from .nt import IUPAC_FORWARD, result_phred
 from .ops import fused2
@@ -834,12 +834,37 @@ class BatchAssembler:
         # batches whose overlap axis overflows the device plane (O_full
         # > L), rerouted to the host twin by _overflow_host: no launch
         self._overflow_reroutes = 0
+        self._batches = 0  # batches through _pre
+        # device-step rows whose candidate mask the host recomputed in
+        # _finalize: hasN rows (or every row at num_kmers >= 3), and
+        # rows with more than CAND_LIST_C candidates
+        self._fixup_rows_n = 0
+        self._fixup_rows_over = 0
+        self._h2d_bytes = 0  # _launch's uploads to a card
+        self._d2h_bytes = 0  # and its downloads
+
+    def engine_counters(self) -> dict:
+        """The engine's counters, totals since construction."""
+        return {"pairs": self.counters.count, "batches": self._batches,
+                "device_steps": self._device_dispatches,
+                "overflow_reroutes": self._overflow_reroutes,
+                "host_steals": self._host_steals,
+                "offload_batches": self._offload_count,
+                "offload_groups": self._offload_groups,
+                "fixup_rows": self._fixup_rows_n + self._fixup_rows_over,
+                "fixup_rows_n": self._fixup_rows_n,
+                "fixup_rows_over": self._fixup_rows_over,
+                "h2d_bytes": self._h2d_bytes,
+                "d2h_bytes": self._d2h_bytes}
 
     # ------------------------------------------------------------------
     def assemble_batch(self, pairs):
         """Returns a list of (code, OracleResult|None) preserving order."""
         st = self._pre(pairs)
+        sp = tracing.begin("dispatch", st["seq"]) if tracing.ON else None
         dev = self._dispatch(st)
+        if sp is not None:
+            tracing.end(sp)
         return self._finalize(st, dev)
 
     def _threaded_pipeline(self, pair_batches, fin, depth: int,
@@ -890,6 +915,13 @@ class BatchAssembler:
         offload = _DeviceOffload(self) if self._offload_enabled() \
             else None
 
+        def result():
+            sp = tracing.begin("wait.finalize") if tracing.ON else None
+            r = futs.popleft().result()
+            if sp is not None:
+                tracing.end(sp)
+            return r
+
         try:
             for st, dev in self._dispatch_stream(pair_batches, group,
                                                  route, stealer,
@@ -898,11 +930,13 @@ class BatchAssembler:
                 if len(q) > depth:
                     futs.append(ex.submit(fin, *q.popleft()))
                 while len(futs) > 2:
-                    yield futs.popleft().result()
+                    yield result()
+            if tracing.ON:
+                tracing.drain()
             while q:
                 futs.append(ex.submit(fin, *q.popleft()))
             while futs:
-                yield futs.popleft().result()
+                yield result()
         finally:
             while q:
                 futs.append(ex.submit(fin, *q.popleft()))
@@ -941,6 +975,8 @@ class BatchAssembler:
             if len(q) > depth:
                 st0, dev0 = q.popleft()
                 yield st0["pairs"], self._finalize(st0, dev0)
+        if tracing.ON:
+            tracing.drain()
         while q:
             st0, dev0 = q.popleft()
             yield st0["pairs"], self._finalize(st0, dev0)
@@ -962,6 +998,9 @@ class BatchAssembler:
 
         ``pairs`` is either a list of ReadPair or a prebuilt Batch (the
         native decoder path, io/native.py)."""
+        seq = self._batches
+        sp = tracing.begin("pre", seq) if tracing.ON else None
+        self._batches += 1
         cfg = self.cfg
         if isinstance(pairs, Batch):
             batch = pairs
@@ -1054,10 +1093,13 @@ class BatchAssembler:
         Lb = int(min(self.L, max(
             _bucket(int(max(flen.max(initial=1), rlen.max(initial=1)))),
             O)))
-        return dict(pairs=pairs, batch=batch, B=B, flen=flen, rlen=rlen,
-                    fo=fo, ro=ro, badread=badread, prerej=prerej,
-                    nofp=nofp, norp=norp, shortread=shortread, maxo=maxo,
-                    negs=negs, skip=skip, O=O, Lb=Lb, O_full=O_full)
+        st = dict(pairs=pairs, batch=batch, B=B, flen=flen, rlen=rlen,
+                  fo=fo, ro=ro, badread=badread, prerej=prerej, nofp=nofp,
+                  norp=norp, shortread=shortread, maxo=maxo, negs=negs,
+                  skip=skip, O=O, Lb=Lb, O_full=O_full, seq=seq)
+        if sp is not None:
+            tracing.end(sp, pairs=B)
+        return st
 
     def _primer_offsets(self, batch, forward: bool):
         """panda_compute_offset over the whole batch (offset.c:47-90),
@@ -1156,12 +1198,16 @@ class BatchAssembler:
         kmerseen simulation — the reference's misindexed occupancy
         check (assembler.c:94-99) drops/overwrites k-mers in a pattern
         the device's rank-based seeding cannot express."""
+        sp = tracing.begin("pack", st.get("seq")) if tracing.ON else None
         plane, hasN = _native.pack4(st["batch"], st["Lb"])
         if self.cfg.num_kmers >= 3:
             st["hasN_rows"] = np.arange(st["B"], dtype=np.int64)
             st["cand_faithful"] = True
         else:
             st["hasN_rows"] = np.flatnonzero(hasN)
+        st["fixup_n"] = len(st["hasN_rows"])
+        if sp is not None:
+            tracing.end(sp)
         return plane
 
     def _sparse_host(self, st):
@@ -1224,10 +1270,18 @@ class BatchAssembler:
                       maxoverlap=cfg.maxoverlap, num_kmers=cfg.num_kmers,
                       algo_kind=self._algo_kind, pmatch=self._pmatch,
                       pmismatch=self._pmismatch)
+        sp = tracing.begin("launch", B=len(flen), Lb=Lb, O=O) \
+            if tracing.ON else None
         arrays = [np.ascontiguousarray(a, dt) for a, dt in args]
         self._device_dispatches += 1
-        return _fetch(shard.run_dp(self._grid, lambda *a: step(*a, **kw),
-                                   arrays))
+        out = shard.run_dp(self._grid, lambda *a: step(*a, **kw), arrays)
+        if out.device.type != "cpu":
+            self._h2d_bytes += sum(a.nbytes for a in arrays)
+            self._d2h_bytes += out.numel() * out.element_size()
+        out = _fetch(out)
+        if sp is not None:
+            tracing.end(sp)
+        return out
 
     def _offload_list(self, plane, flen, rlen, Lb, O):
         """The offload lane's job (on a lane thread): the candidate-list
@@ -1398,6 +1452,8 @@ class BatchAssembler:
         pend = []
 
         def flush():
+            sp = tracing.begin("dispatch", pend[0].get("seq"),
+                               batches=len(pend)) if tracing.ON else None
             if offload is not None and offload.room() \
                     and self._offload_ok(pend):
                 devs = offload.submit_group(pend)
@@ -1406,6 +1462,8 @@ class BatchAssembler:
                 devs = self._dispatch_group_host(pend, stealer)
             else:
                 devs = self._dispatch_group(pend)
+            if sp is not None:
+                tracing.end(sp)
             yield from zip(pend, devs)
             pend.clear()
 
@@ -1480,6 +1538,7 @@ class BatchAssembler:
             rows = st.get("hasN_rows")
             st["hasN_rows"] = over if rows is None or not len(rows) \
                 else np.union1d(rows, over)
+            st["fixup_over"] = len(st["hasN_rows"]) - st.get("fixup_n", 0)
         return mask.view(np.int32)
 
     def _resolve_fallbacks(self, st, plane):
@@ -1528,15 +1587,23 @@ class BatchAssembler:
                 % (src._ring_n, src._ring_i - batch._ring_gen))
 
     def _finalize(self, st, dev, emit: str | None = None):
+        sp = tracing.begin("finalize", st.get("seq")) if tracing.ON \
+            else None
         out = self._finalize_inner(st, dev, emit)
         # after every read of the batch's (possibly ring-backed)
         # planes: native finalize/emit and the skip/fallback paths have
         # all consumed them by now
         self._check_ring(st)
+        if sp is not None:
+            tracing.end(sp, pairs=st["B"])
         return out
 
     def _finalize_inner(self, st, dev, emit: str | None = None):
+        sp = tracing.begin("wait.device") \
+            if tracing.ON and not isinstance(dev, np.ndarray) else None
         plane = np.asarray(dev)
+        if sp is not None:
+            tracing.end(sp)
         pk = st.get("plane_kind", 0)
         if pk:
             B = st["B"]
@@ -1548,10 +1615,18 @@ class BatchAssembler:
             if rows is not None and len(rows):
                 # the 4-bit upload dropped the N planes; recompute
                 # these rows' candidate masks exactly on host
+                fixup = "fixup_n" in st  # else the host engine's rows
+                if fixup:
+                    self._fixup_rows_n += st["fixup_n"]
+                    self._fixup_rows_over += st.get("fixup_over", 0)
+                sp = tracing.begin("fixup", rows=len(rows)) \
+                    if tracing.ON and fixup else None
                 fix = _native.cand_mask(st["batch"], rows,
                                         self.cfg.num_kmers, st["O"],
                                         faithful=st.get("cand_faithful",
                                                         False))
+                if sp is not None:
+                    tracing.end(sp)
                 if not writable:
                     plane = np.array(plane)  # writable copy
                 plane[rows] = fix
@@ -1578,11 +1653,14 @@ class BatchAssembler:
                 ab = (np.zeros((B, 928), dtype=np.uint8),
                       np.zeros((B, 928), dtype=np.int16))
                 self._arrays_buf = ab
+            sp = tracing.begin("psq_finalize") if tracing.ON else None
             r = _native.finalize(
                 st["batch"], st["skip"], st["fo"], st["ro"], plane,
                 self.SL, fb, self._algo_params, self._cfg_params,
                 self._ptbl, self._phtbl, 0, want_arrays=True,
                 plane_kind=pk, arrays_buf=ab)
+            if sp is not None:
+                tracing.end(sp)
             return self._emit_with_modules(st, r, fmt)
         # no arrays_buf reuse here: _results_from_native hands out
         # views into ascii/pidx, which must outlive the next batch
@@ -1591,11 +1669,14 @@ class BatchAssembler:
             if self._payload_buf is None \
                     or self._payload_buf.nbytes < cap:
                 self._payload_buf = np.empty(cap, dtype=np.uint8)
+        sp = tracing.begin("psq_finalize") if tracing.ON else None
         r = _native.finalize(
             st["batch"], st["skip"], st["fo"], st["ro"], plane, self.SL,
             fb, self._algo_params, self._cfg_params, self._ptbl,
             self._phtbl, fmt, want_arrays=(fmt == 0),
             payload_buf=self._payload_buf, plane_kind=pk)
+        if sp is not None:
+            tracing.end(sp)
         if emit is not None:
             return self._emit_from_native(st, r, emit)
         return self._results_from_native(st, r)
@@ -1915,6 +1996,8 @@ class BatchAssembler:
             q.append((st, dev))
             if len(q) > depth:
                 yield fin(*q.popleft())
+        if tracing.ON:
+            tracing.drain()
         while q:
             yield fin(*q.popleft())
 

@@ -9,8 +9,8 @@ module's ``run`` with the device seams replaced: no JAX platform switch
 and no compilation cache,
 the port's ``BatchAssembler`` (device from ``PANDASEQ_TORCH_DEVICE``,
 default ``cuda``; engine from the pins, else the device: see
-assembler.py), a
-``torch.profiler`` trace under ``PANDASEQ_TPU_PROFILE``, and a dispatch
+assembler.py), spans and the ``torch.profiler`` trace of
+``PANDASEQ_TPU_PROFILE`` (tracing.py), and a dispatch
 group of 1 by default
 (``PANDASEQ_TPU_GROUP`` still overrides): stacking batches amortized a
 fixed per-dispatch cost of the TPU's remote wire, which a local card
@@ -27,7 +27,7 @@ import sys
 
 import numpy as np
 
-from .. import filters, oracle, stats
+from .. import filters, oracle, stats, tracing
 from .. import seqid as seqid_mod
 from ..assembler import BatchAssembler, Counters
 from ..io import fastq as fq
@@ -340,6 +340,11 @@ def _open_out(path, use_bz2):
 
 def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
         batch_wrapper=None) -> int:
+    with tracing.job() as job:
+        return _run(c, argv, prog, reader_wrapper, batch_wrapper, job)
+
+
+def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
     log_stream, close_log = _open_out(c.log_path, c.log_bz2) \
         if c.log_path else (sys.stderr.buffer, False)
     logger = stats.LogProxy(log_stream, c.debug_flags)
@@ -387,13 +392,12 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
     fail_fmt = out_mod.format_fail_qual if c.fail_qual \
         else out_mod.format_fail
 
-    from ..runtime import describe, maybe_profile
+    from ..runtime import describe
     try:
         asm = BatchAssembler(c.cfg, L=512, modules=c.modules)
     except RuntimeError as e:  # no card for the device, no native library
         _err("ERR\tDEVICE\t%s" % e)
         return 1
-    prof = maybe_profile().__enter__()  # PANDASEQ_TPU_PROFILE=<dir>
     # provenance: which candidate-search engine serves this run (a pin,
     # the device's default, or under PANDASEQ_TPU_ENGINE=auto the
     # measured probe with its times) — args.c:515-531 analogue. The
@@ -441,6 +445,9 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
             reader = reader_wrapper(reader, logger)
     else:
         reader = native_reader
+    job.counters = lambda: dict(
+        asm.engine_counters(), ring_slots_new=(
+            native_reader.ring_slots_new if native_reader else 0))
 
     some_seqs = False
 
@@ -529,6 +536,7 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
                 and native.get_lib() is not None
                 and all(m.check is None or m.check_batch is not None
                         for m in c.modules))
+    job.setup_done()
     if use_emit:
         emit_fmt = "fastq" if c.fastq_out else "fasta"
         # pre_stream runs the _pre stage (prechecks, primer scans) on
@@ -544,6 +552,7 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
                 prefetch(asm.pre_stream(batches())), fmt=emit_fmt,
                 with_extras=True, depth=depth, threaded=True,
                 group=group):
+            sp = tracing.begin("emit", batch_no) if tracing.ON else None
             out_stream.write(payload)
             overlaps = extras["overlap"]
             scored = extras["scored"]
@@ -614,6 +623,8 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
                         flush_chunks()
                         reporter.print_time(done)
                 flush_chunks()
+            if sp is not None:
+                tracing.end(sp, pairs=len(codes))
     else:
         import copy as _copy
         prev_snap = _copy.deepcopy(asm.counters) if vcounters else None
@@ -626,6 +637,7 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
             if vcounters is None else prefetch(batches())
         for pairs, results in asm.assemble_stream(
                 stream, threaded=vcounters is None):
+            sp = tracing.begin("emit", batch_no) if tracing.ON else None
             if vcounters is not None:
                 cur, p = asm.counters, prev_snap
                 delta = [cur.ok - p.ok, cur.lowq - p.lowq,
@@ -660,6 +672,8 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
                     handle_reject(pair, code, res)
                 if done % 1000 == 0:
                     reporter.print_time(done)
+            if sp is not None:
+                tracing.end(sp, pairs=len(pairs))
 
     if reader.seen_under_64 is False and reader.non_empty \
             and c.qualmin == 33:
@@ -681,7 +695,6 @@ def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
         if mod.destroy is not None:
             mod.destroy()
 
-    prof.__exit__()
     if close_out:
         out_stream.close()
     if fail_stream is not None:

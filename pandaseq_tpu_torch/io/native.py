@@ -6,7 +6,8 @@ hot path never materializes per-read Python objects; per-pair views are
 created lazily only for module prechecks / oracle fallbacks.
 
 The PyTorch port's copy of ``pandaseq_tpu/io/native.py``, unchanged but for its
-imports, its source and where the library goes: it compiles the port's own
+imports, its source, where the library goes and the reader's ``decode``
+span and ``ring_slots_new`` counter (tracing.py): it compiles the port's own
 copy of the host engine, ``pandaseq_tpu_torch/native/psq_io.cpp`` (shipped
 with the package), into ``native/`` under ``_paths.build_root()`` (``build/``
 in a checkout, ``~/.cache/pandaseq_tpu_torch`` once installed), under a
@@ -23,6 +24,7 @@ import subprocess
 
 import numpy as np
 
+from .. import tracing
 from .._paths import PKG, build_root
 
 # The pipeline calls OpenMP regions from several pthreads (decoder on
@@ -543,6 +545,8 @@ class NativeBatchReader:
         self._ring_n = ring
         self._ring = []
         self._ring_i = 0
+        self.ring_slots_new = 0  # ring slots created (first touched)
+        self._batches = 0
         self.error = None
         self.seen_under_64 = False
         self.non_empty = False
@@ -559,10 +563,12 @@ class NativeBatchReader:
         return self
 
     def __next__(self):
-        from ..assembler import Batch
         if self.h is None:
             raise StopIteration
+        sp = tracing.begin("decode", self._batches) if tracing.ON else None
+        from ..assembler import Batch
         B, L = self.batch, self.L
+        fresh = False
         # np.empty, not np.zeros: the decoder writes every byte of the
         # first n rows (row tails are memset, ids are nul-terminated)
         # and rows >= n are sliced away below, so the 21 MB of eager
@@ -576,12 +582,15 @@ class NativeBatchReader:
                         (B, np.int32), (B, np.int32),
                         ((B, ID_STRIDE), np.uint8), ((B, L), np.int8))))
                 bufs = self._ring[-1]
+                self.ring_slots_new += 1
+                fresh = True
             else:
                 bufs = self._ring[self._ring_i % self._ring_n]
             self._ring_i += 1
             (fwd_nt, fwd_q, rev_nt, rev_q, flen, rlen, ids,
              nt_pack) = bufs
         else:
+            fresh = True
             fwd_nt = np.empty((B, L), dtype=np.int8)
             fwd_q = np.empty((B, L), dtype=np.int8)
             rev_nt = np.empty((B, L), dtype=np.int8)
@@ -604,6 +613,8 @@ class NativeBatchReader:
             self.error = ERROR_CODES.get(err.value, "UNKNOWN")
         if n == 0:
             self.close()
+            if sp is not None:  # the end of the stream: no batch
+                tracing.end(sp, pairs=0, fresh_slot=fresh)
             raise StopIteration
         if n < B:
             fwd_nt, fwd_q = fwd_nt[:n], fwd_q[:n]
@@ -624,6 +635,9 @@ class NativeBatchReader:
             # reads)
             b._ring_gen = self._ring_i
             b._ring_src = self
+        self._batches += 1
+        if sp is not None:
+            tracing.end(sp, pairs=n, fresh_slot=fresh)
         return b
 
     def skip_batch(self) -> int:

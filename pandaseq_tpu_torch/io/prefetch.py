@@ -4,13 +4,16 @@ the batch pipeline: host decode for batch k+2 proceeds while batch k+1
 sits on the device and batch k finalizes.
 
 The PyTorch port's copy of ``pandaseq_tpu/io/prefetch.py``, unchanged but for its
-imports; the port imports nothing of ``pandaseq_tpu``.
+imports and the consumer's ``wait.prefetch`` span (tracing.py); the port
+imports nothing of ``pandaseq_tpu``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+
+from .. import tracing
 
 _SENTINEL = object()
 
@@ -56,7 +59,10 @@ def prefetch(iterable, depth: int = 4):
     t.start()
     try:
         while True:
+            sp = tracing.begin("wait.prefetch") if tracing.ON else None
             item = q.get()
+            if sp is not None:
+                tracing.end(sp)
             if item is _SENTINEL:
                 if exc:
                     raise exc[0]

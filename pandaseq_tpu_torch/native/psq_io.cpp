@@ -889,8 +889,6 @@ long next_batch_parallel(PairReader *r, long batch, long stride,
                          int8_t *fwd_nt, int8_t *fwd_q, int8_t *rev_nt,
                          int8_t *rev_q, int32_t *flen, int32_t *rlen,
                          char *ids, long id_stride, int8_t *nt_pack) {
-    static const bool prof = getenv("PSQ_DECODE_PROFILE") != nullptr;
-    double p1 = 0, p2 = 0, p3 = 0, t;
     long n = 0;
     const bool skip = fwd_nt == nullptr;
     if (skip && r->skip_q.size() < (size_t) batch * 2 * MAX_LEN)
@@ -913,7 +911,6 @@ long next_batch_parallel(PairReader *r, long batch, long stride,
         // a leftover seq line) must match the one-record-at-a-time
         // reference reader byte-for-byte. Offsets index each stream's
         // own block-scanned arena (no per-line copies).
-        if (prof) t = omp_get_wtime();
         lines.reserve((size_t) want);
         for (long k = 0; k < want; k++) {
             // bulk fast path: whole records already scanned into the
@@ -969,7 +966,6 @@ long next_batch_parallel(PairReader *r, long batch, long stride,
         }
         long nrec = (long) lines.size();
         if (nrec == 0) break;
-        if (prof) { p1 += omp_get_wtime() - t; t = omp_get_wtime(); }
         recs.assign(nrec, RecOut());
         // resolved only after collection: refills may realloc
         const char *FA = r->fwd.ar.data();
@@ -1114,7 +1110,6 @@ long next_batch_parallel(PairReader *r, long batch, long stride,
             rlen[row] = rl;
             fid.print(ids + row * id_stride, (int) id_stride);
         }
-        if (prof) { p2 += omp_get_wtime() - t; t = omp_get_wtime(); }
         // ---- phase 3: sequential semantics in record order
         long emitted = 0;
         bool stop = false;
@@ -1174,13 +1169,9 @@ long next_batch_parallel(PairReader *r, long batch, long stride,
             }
             emitted++;
         }
-        if (prof) p3 += omp_get_wtime() - t;
         n += emitted;
         if (stop || nrec < want) break;  // error / EOF reached
     }
-    if (prof && n)
-        fprintf(stderr, "[decode] n=%ld p1=%.2fms p2=%.2fms p3=%.2fms\n",
-                n, p1 * 1e3, p2 * 1e3, p3 * 1e3);
     return n;
 }
 

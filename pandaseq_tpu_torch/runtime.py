@@ -1,5 +1,5 @@
-"""Runtime knobs of the PyTorch port: device resolution, the engine
-probe and profiling.
+"""Runtime knobs of the PyTorch port: device resolution and the engine
+probe (the port's tracing is tracing.py).
 
 Counterpart of ``pandaseq_tpu/runtime.py``. ``PANDASEQ_TORCH_DEVICE``
 (default ``cuda``) plays the part of the JAX package's ``JAX_PLATFORMS``
@@ -209,32 +209,3 @@ def describe(info) -> str:
     return "probe%s: host %.3f ms, device %.3f ms" % (
         ", cached" if info.get("cached") else "", info["host_ms"],
         info["device_ms"])
-
-
-class maybe_profile:
-    """torch.profiler trace over a run when PANDASEQ_TPU_PROFILE=<dir>
-    is set: CPU activity, plus the card's when one is visible, written
-    as a Chrome trace ``<dir>/trace-<pid>.json`` on exit."""
-
-    def __init__(self, trace_dir: str | None = None):
-        self.dir = trace_dir or os.environ.get("PANDASEQ_TPU_PROFILE")
-        self.prof = None
-
-    def __enter__(self):
-        if self.dir:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self.prof is not None:
-            self.prof.__exit__(*(exc or (None, None, None)))
-            os.makedirs(self.dir, exist_ok=True)
-            self.prof.export_chrome_trace(
-                os.path.join(self.dir, "trace-%d.json" % os.getpid()))
-            self.prof = None
-        return False
