@@ -1374,11 +1374,13 @@ def emit_run(asm, f1, f2, out_path, group=1, depth=10):
     CLI's batch, ring and depth (and dispatch group), unless ``group``
     and ``depth`` say otherwise. Returns (seconds, batch sizes, STAT
     counters)."""
+    from pandaseq_tpu_torch.cli.main import ring_slots
     from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.io.prefetch import prefetch
 
     # the CLI's ring, or run_distributed's for a grouped run
-    ring = 25 if group == 1 else 2 * depth + group + 16
+    ring = ring_slots(depth, group) if group == 1 \
+        else 2 * depth + group + 16
     reader = native.NativeBatchReader(f1, f2, batch=CLI_BATCH, L=512,
                                       ring=ring)
     sizes = []
@@ -1696,8 +1698,9 @@ def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
             "%d launches, %d batches stolen; %.1f pairs/s (%.3f s) on %s"
             % (label, launched["cand_join"], steals, E2E_PAIRS / dt, dt,
                card))
-    # the steal's A/B where its gate fires: run_distributed's group and
-    # depth; one cand_join launch per group that is not stolen
+    # the steal's A/B where its gate can fire (depth 3 and more):
+    # run_distributed's group and depth; one cand_join launch per group
+    # that is not stolen
     params = inspect.signature(distributed.run_distributed).parameters
     group, depth = params["group"].default, params["depth"].default
     n_groups = math.ceil(n_batches / group)

@@ -60,6 +60,11 @@ opt-in:
   a CUDA error), or a group whose result does not come back within the
   lane's timeout, raises out of the pipeline.
 
+The threaded pipeline also departs from the JAX engine's: each batch's
+finalize goes to the worker at the batch's dispatch, not ``depth``
+dispatches later, so decode + ``_pre``, dispatch + the consumer, and
+finalize run at once; ``depth`` caps the batches not yet yielded.
+
 Pipeline per batch:
 
   1. host (_pre): decode to REVERSED left-aligned [B, L] int8 frames
@@ -74,8 +79,8 @@ Pipeline per batch:
      decide (n_band > SL: > SL near-ties in f32) replay through the
      numpy oracle; custom algorithms route every pair through it.
 
-_pre/_dispatch/_finalize are pipelined ``depth`` batches deep
-(assemble_stream / emit_stream) so device and host work overlap.
+_pre/_dispatch/_finalize are pipelined with up to ``depth`` batches in
+flight (assemble_stream / emit_stream) so device and host work overlap.
 Counter names mirror the reference STAT block (pool.c:83-104).
 """
 
@@ -371,6 +376,16 @@ class _SliceView:
         if dtype is not None and out.dtype != dtype:
             out = out.astype(dtype)
         return out
+
+
+def _on_card(dev):
+    """Whether a dispatched batch's device result is still on its way:
+    its download's CUDA event not yet complete (a host result, a stolen
+    or offloaded one, or a fetched one never is)."""
+    if isinstance(dev, _SliceView):
+        dev = dev._shared.dev
+    ev = dev._event if isinstance(dev, _PendingList) else None
+    return ev is not None and not ev.query()
 
 
 class _FutureArray:
@@ -842,6 +857,9 @@ class BatchAssembler:
         self._fixup_rows_over = 0
         self._h2d_bytes = 0  # _launch's uploads to a card
         self._d2h_bytes = 0  # and its downloads
+        # batches of the threaded pipeline whose finalize went to the
+        # worker before the stream's last dispatch
+        self._early_finalize = 0
 
     def engine_counters(self) -> dict:
         """The engine's counters, totals since construction."""
@@ -855,7 +873,8 @@ class BatchAssembler:
                 "fixup_rows_n": self._fixup_rows_n,
                 "fixup_rows_over": self._fixup_rows_over,
                 "h2d_bytes": self._h2d_bytes,
-                "d2h_bytes": self._d2h_bytes}
+                "d2h_bytes": self._d2h_bytes,
+                "early_finalize_batches": self._early_finalize}
 
     # ------------------------------------------------------------------
     def assemble_batch(self, pairs):
@@ -869,21 +888,30 @@ class BatchAssembler:
 
     def _threaded_pipeline(self, pair_batches, fin, depth: int,
                            group: int = 1):
-        """Two-stage host pipeline: the main thread runs _pre/_dispatch
-        (keeping ``depth`` batches in flight on the device), one FIFO
-        worker thread waits for each device->host transfer and runs
-        ``fin`` (so counter updates, stateful modules and output order
-        stay sequential) — the reference's reader-thread + worker-pool
-        overlap (async.c, pool.c) as pipeline stages. (A deeper
-        fetch/finalize split measured slower on small hosts: thread
-        contention outweighs the overlap.) The finally-block finalizes
-        every dispatched batch even when the consumer stops iterating
+        """Three-stage host pipeline: the prefetch thread upstream runs
+        decode and _pre, the main thread dispatches each batch and hands
+        its ``fin`` to one FIFO worker thread at once (the worker waits
+        for the device->host transfer, then finalizes; FIFO keeps
+        counter updates, stateful modules and output order sequential),
+        and main yields the oldest result as soon as it is done — the
+        reference's reader-thread + worker-pool overlap (async.c,
+        pool.c) as pipeline stages. ``depth`` caps the batches
+        dispatched whose results are not yet yielded; main waits on the
+        oldest only at the cap. The finally-block finalizes every
+        dispatched batch even when the consumer stops iterating
         mid-stream."""
         from collections import deque
 
+        cap = max(depth, 1)
         ex = ThreadPoolExecutor(1)
-        q = deque()  # (st, dev) in flight on device
-        futs = deque()
+        futs = deque()  # (finalize, dev) of the batches not yet yielded
+        submitted = [0]  # finalizes submitted since the last dispatch
+
+        def dispatched():
+            # each finalize submitted so far went in before this
+            # dispatch, so before the stream's last one
+            self._early_finalize += submitted[0]
+            submitted[0] = 0
 
         # hybrid work-steal, opt-in (PANDASEQ_TPU_HYBRID: unset or "0"
         # off, "adaptive" or "1" the adaptive gate, "force" always
@@ -906,8 +934,13 @@ class BatchAssembler:
             if hyb not in ("adaptive", "1"):
                 return False
             s = stealer_box[0]
-            return ((s is None or s.idle()) and len(futs) >= 2
-                    and not futs[0].done())
+            if not futs or futs[0][0].done() or not (s is None
+                                                     or s.idle()):
+                return False
+            # visibly behind: the oldest finalize not done, and two or
+            # more whose batches are off the card (a batch still on it
+            # holds the worker back, not the worker's own pace)
+            return sum(not _on_card(d) for _, d in futs) >= 2
 
         # host engine + idle device: opportunistic device offload (the
         # inverse of the host steal; at most one of the two is active,
@@ -917,7 +950,7 @@ class BatchAssembler:
 
         def result():
             sp = tracing.begin("wait.finalize") if tracing.ON else None
-            r = futs.popleft().result()
+            r = futs.popleft()[0].result()
             if sp is not None:
                 tracing.end(sp)
             return r
@@ -925,24 +958,19 @@ class BatchAssembler:
         try:
             for st, dev in self._dispatch_stream(pair_batches, group,
                                                  route, stealer,
-                                                 offload):
-                q.append((st, dev))
-                if len(q) > depth:
-                    futs.append(ex.submit(fin, *q.popleft()))
-                while len(futs) > 2:
+                                                 offload, dispatched):
+                futs.append((ex.submit(fin, st, dev), dev))
+                submitted[0] += 1
+                while len(futs) >= cap or (futs and futs[0][0].done()):
                     yield result()
             if tracing.ON:
                 tracing.drain()
-            while q:
-                futs.append(ex.submit(fin, *q.popleft()))
             while futs:
                 yield result()
         finally:
-            while q:
-                futs.append(ex.submit(fin, *q.popleft()))
             while futs:
                 try:
-                    futs.popleft().result()
+                    futs.popleft()[0].result()
                 except Exception:
                     pass
             ex.shutdown(wait=True)
@@ -951,14 +979,16 @@ class BatchAssembler:
             if offload is not None:
                 offload.shutdown()
 
-    def assemble_stream(self, pair_batches, depth: int = 3,
+    def assemble_stream(self, pair_batches, depth: int = 4,
                         threaded: bool = False, group: int = 1):
         """Pipelined driver: yields one result list per input batch,
-        keeping up to ``depth`` batches in flight on the device before
-        finalizing the oldest (the async-reader/pool overlap of the
-        reference, async.c/pool.c, as device/host overlap). With
-        ``threaded`` the transfer wait and the host finalization run on
-        separate FIFO worker threads. ``group`` stacks that many
+        with at most ``depth`` batches dispatched whose results are not
+        yet yielded: the oldest finalizes once the cap is reached (the
+        async-reader/pool overlap of the reference, async.c/pool.c, as
+        device/host overlap). With ``threaded`` each batch's transfer
+        wait and host finalization go to a FIFO worker thread as soon
+        as it is dispatched, and main yields each result once it is
+        done (_threaded_pipeline). ``group`` stacks that many
         consecutive batches into one device dispatch (_dispatch_group)
         to amortize the wire's fixed per-dispatch floor."""
         from collections import deque
@@ -972,7 +1002,7 @@ class BatchAssembler:
         q = deque()
         for st, dev in self._dispatch_stream(pair_batches, group):
             q.append((st, dev))
-            if len(q) > depth:
+            if len(q) >= depth:
                 st0, dev0 = q.popleft()
                 yield st0["pairs"], self._finalize(st0, dev0)
         if tracing.ON:
@@ -1442,13 +1472,15 @@ class BatchAssembler:
         return outs
 
     def _dispatch_stream(self, pair_batches, group: int = 1,
-                         route=None, stealer=None, offload=None):
+                         route=None, stealer=None, offload=None,
+                         dispatched=None):
         """(st, dev) pairs in input order, dispatching up to ``group``
         consecutive same-bucket batches per device call. When ``route``
         (the hybrid steal gate) fires and the group is eligible, the
         whole group is computed by the host candidate twin instead;
         with a host engine and an ``offload`` lane, eligible groups go
-        to the idle device while it has room."""
+        to the idle device while it has room. ``dispatched()`` is
+        called after each dispatch call."""
         pend = []
 
         def flush():
@@ -1464,6 +1496,8 @@ class BatchAssembler:
                 devs = self._dispatch_group(pend)
             if sp is not None:
                 tracing.end(sp)
+            if dispatched is not None:
+                dispatched()
             yield from zip(pend, devs)
             pend.clear()
 
@@ -1964,17 +1998,19 @@ class BatchAssembler:
         return out
 
     def emit_stream(self, pair_batches, fmt: str = "fasta",
-                    depth: int = 4, with_extras: bool = False,
+                    depth: int = 5, with_extras: bool = False,
                     threaded: bool = False, group: int = 1):
         """Pipelined fast path yielding (pairs, codes, payload_bytes[,
         extras]) per batch. Requires pre-assembly primers; filter
         modules are allowed when every check-stage module has a
         vectorized ``check_batch`` (all built-ins do).
 
-        With ``threaded`` the host finalization runs on one worker
-        thread (FIFO, so counter updates and batch order stay
-        sequential) overlapping the next batch's dispatch/transfer —
-        the pool.c worker/reader overlap, host-side. ``group`` stacks
+        ``depth`` caps the batches dispatched whose results are not yet
+        yielded. With ``threaded`` the host finalization runs on one
+        worker thread (FIFO, so counter updates and batch order stay
+        sequential) from the batch's dispatch on, overlapping the next
+        batches' dispatch and the consumer's work — the pool.c
+        worker/reader overlap, host-side. ``group`` stacks
         that many consecutive batches into one device dispatch."""
         assert not self.cfg.post_primers
         assert all(m.check is None or m.check_batch is not None
@@ -1994,7 +2030,7 @@ class BatchAssembler:
         q = deque()
         for st, dev in self._dispatch_stream(pair_batches, group):
             q.append((st, dev))
-            if len(q) > depth:
+            if len(q) >= depth:
                 yield fin(*q.popleft())
         if tracing.ON:
             tracing.drain()

@@ -338,6 +338,13 @@ def _open_out(path, use_bz2):
     return open(path, "wb"), True
 
 
+def ring_slots(depth: int, group: int) -> int:
+    """Decode-ring slots for the CLI's pipelines: one more than the most
+    batches the reader pulls while an earlier batch is still in use,
+    (depth - 1) + (group - 1) + 5 (see _run)."""
+    return max(depth, 1) + max(group, 1) + 4
+
+
 def run(c: Config, argv, prog="pandaseq", reader_wrapper=None,
         batch_wrapper=None) -> int:
     with tracing.job() as job:
@@ -406,30 +413,35 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
                      % (asm.engine, describe(asm.engine_info)))
     reporter = stats.StatReporter(logger)
 
+    # group stacks that many batches per device call (1: one launch per
+    # batch; a no-op in host-only mode, where _dispatch_group falls back
+    # per batch); depth caps the batches dispatched but not yet emitted.
+    # Both pipelines below and the decode ring are sized by these.
+    group = int(os.environ.get("PANDASEQ_TPU_GROUP", "1"))
+    depth = int(os.environ.get("PANDASEQ_TPU_DEPTH", "10"))
     native_reader = None
     if ((reader_wrapper is None or batch_wrapper is not None)
             and not os.environ.get("PANDASEQ_TPU_NO_NATIVE")):
         try:
             if native.get_lib() is not None:
-                # ring: the emit pipeline holds at most depth(6) +
-                # prefetch(4) + pre_stream/finalize/consumer (~4)
-                # batches; 20 persistent sets removes ~21 MB/batch of
-                # first-touch page faults from the decode wall time.
-                # The -d K/R/M oracle-replay path may hold pair views
+                # ring: persistent buffer sets spare each decode the
+                # first-touch page faults of ~21 MB. A batch's buffers
+                # are read until its result is consumed; by then the
+                # reader has pulled at most: the batches dispatched
+                # after it (depth - 1, depth capping the results not
+                # yet yielded), a dispatch group less one, and the
+                # prefetch queue's 4 + the one its thread holds. The
+                # engine hard-fails on an overrun (_check_ring). The
+                # -d K/R/M oracle-replay path may hold pair views
                 # longer, so it keeps fresh allocations.
                 detail = c.debug_flags & (stats.DEBUG_KMER
                                           | stats.DEBUG_RECON
                                           | stats.DEBUG_MISMATCH)
-                # ring must cover prefetch(4+1) + dispatch group +
-                # pipeline depth(+1) + finalize futs(~4) in-flight
-                # batches (the engine hard-fails on overrun)
-                group = int(os.environ.get("PANDASEQ_TPU_GROUP", "1"))
-                depth = int(os.environ.get("PANDASEQ_TPU_DEPTH", "10"))
                 native_reader = native.NativeBatchReader(
                     c.fwd_file, c.rev_file, qualmin=c.qualmin,
                     policy=c.policy, batch=c.batch, L=512,
                     index_path=c.index_file,
-                    ring=0 if detail else depth + group + 14)
+                    ring=0 if detail else ring_slots(depth, group))
         except (OSError, RuntimeError):
             native_reader = None
     if native_reader is None:
@@ -540,14 +552,8 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
     if use_emit:
         emit_fmt = "fastq" if c.fastq_out else "fasta"
         # pre_stream runs the _pre stage (prechecks, primer scans) on
-        # the prefetch thread, overlapped with device dispatch; group
-        # stacks that many batches per device call (1: one launch per
-        # batch; a no-op in host-only mode, where _dispatch_group falls
-        # back per batch); depth keeps batches in flight on the card
-        # while the oldest finalizes. The decode ring above is sized
-        # for these values (PANDASEQ_TPU_GROUP / PANDASEQ_TPU_DEPTH).
-        group = int(os.environ.get("PANDASEQ_TPU_GROUP", "1"))
-        depth = int(os.environ.get("PANDASEQ_TPU_DEPTH", "10"))
+        # the prefetch thread, overlapped with device dispatch; each
+        # batch finalizes on the worker from its dispatch on
         for pairs, codes, payload, extras in asm.emit_stream(
                 prefetch(asm.pre_stream(batches())), fmt=emit_fmt,
                 with_extras=True, depth=depth, threaded=True,
@@ -636,7 +642,8 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
         stream = prefetch(asm.pre_stream(batches())) \
             if vcounters is None else prefetch(batches())
         for pairs, results in asm.assemble_stream(
-                stream, threaded=vcounters is None):
+                stream, depth=depth, threaded=vcounters is None,
+                group=group):
             sp = tracing.begin("emit", batch_no) if tracing.ON else None
             if vcounters is not None:
                 cur, p = asm.counters, prev_snap

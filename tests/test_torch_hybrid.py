@@ -12,7 +12,7 @@ import time
 import pytest
 import torch
 
-from pandaseq_tpu_torch import oracle
+from pandaseq_tpu_torch import assembler, oracle
 from pandaseq_tpu_torch.assembler import BatchAssembler
 from pandaseq_tpu_torch.io import native
 from pandaseq_tpu_torch.ops import cand
@@ -114,7 +114,83 @@ def test_steal_never_applies_to_host_engine_or_mesh(monkeypatch):
 def test_steal_is_opt_in(monkeypatch, hybrid):
     """With a finalizer slower than the device step the adaptive gate
     fires; unset (the default) and "0" steal nothing and launch the
-    device step once per batch, "adaptive" and "1" steal."""
+    device step once per batch, "adaptive" and "1" steal. (Depth 4: the
+    pipeline's depth caps the batches not yet yielded, so at depth 1
+    main waits on each result and the worker is never behind.)"""
+    launches = _slow_finalize(monkeypatch)
+    payload, codes, _, steals = _run(monkeypatch, hybrid, batch=16,
+                                     group=1, depth=4)
+    n_batches = len(codes) // 16 + (len(codes) % 16 > 0)
+    assert payload and n_batches == 13
+    if hybrid in (None, "0"):
+        assert steals == 0 and len(launches) == n_batches
+    else:
+        assert steals > 0 and len(launches) + steals == n_batches
+
+
+@pytest.mark.parametrize("depth,group", [(6, 4), (4, 2), (3, 1)])
+def test_adaptive_gate_fires_behind_a_slow_finalizer(monkeypatch, depth,
+                                                     group):
+    """Two finalizes or more queued whose batches are off the card, and
+    the oldest not done: the adaptive gate steals, at run_distributed's
+    group 4 and depth 6 too, and the bytes and codes are the device
+    step's."""
+    want, want_codes, _, _ = _run(monkeypatch, "0", batch=16, group=group,
+                                  depth=depth)
+    _slow_finalize(monkeypatch)
+    got, codes, _, steals = _run(monkeypatch, "adaptive", batch=16,
+                                 group=group, depth=depth)
+    assert steals > 0 and got == want and codes == want_codes
+
+
+class _HeldDownload:
+    """A download event that completes only when waited on: the batch
+    stays on the card until the worker reaches it."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+def _hold_downloads(monkeypatch):
+    real = BatchAssembler._launch
+
+    def held(self, *a, **kw):
+        return assembler._PendingList(real(self, *a, **kw)._host,
+                                      _HeldDownload())
+
+    monkeypatch.setattr(BatchAssembler, "_launch", held)
+
+
+@pytest.mark.parametrize("depth,group", [(1, 1), (2, 1), (3, 1), (4, 2),
+                                         (6, 4), (10, 1)],
+                         ids=["1", "2", "3", "4-2", "6-4", "10-1"])
+def test_adaptive_gate_ignores_the_newest_dispatch(monkeypatch, depth,
+                                                   group):
+    """The finalize of a batch goes to the worker at its dispatch, while
+    the batch may still be on the card: with every download held until
+    the worker waits on it, the adaptive gate steals nothing however
+    slow the finalizer, at the depths and groups where it can fire too,
+    for the worker is not behind by its own pace; the bytes are those of
+    the run that steals nothing."""
+    want, _, _, _ = _run(monkeypatch, "0", batch=16, group=group,
+                         depth=depth)
+    launches = _slow_finalize(monkeypatch)
+    _hold_downloads(monkeypatch)
+    got, _, _, steals = _run(monkeypatch, "adaptive", batch=16,
+                             group=group, depth=depth)
+    assert steals == 0 and got == want
+    assert len(launches) == -(-13 // group)
+
+
+def _slow_finalize(monkeypatch):
+    """A finalizer 50 ms slower than the device step; returns the list
+    that counts the device step's launches."""
     real_fin = BatchAssembler._finalize
     real_launch = BatchAssembler._launch
     launches = []
@@ -129,14 +205,7 @@ def test_steal_is_opt_in(monkeypatch, hybrid):
 
     monkeypatch.setattr(BatchAssembler, "_finalize", slow)
     monkeypatch.setattr(BatchAssembler, "_launch", counting)
-    payload, codes, _, steals = _run(monkeypatch, hybrid, batch=16,
-                                     group=1, depth=1)
-    n_batches = len(codes) // 16 + (len(codes) % 16 > 0)
-    assert payload and n_batches == 13
-    if hybrid in (None, "0"):
-        assert steals == 0 and len(launches) == n_batches
-    else:
-        assert steals > 0 and len(launches) + steals == n_batches
+    return launches
 
 
 def test_adaptive_default_stays_exact(monkeypatch):

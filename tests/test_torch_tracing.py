@@ -34,7 +34,8 @@ FWD, REV = "GTGCCAGCMGCCGCGGTAA", "GGACTACHVGGGTWTCTAAT"  # 515F, 806R
 COUNTERS = {"pairs", "batches", "device_steps", "overflow_reroutes",
             "host_steals", "offload_batches", "offload_groups",
             "fixup_rows", "fixup_rows_n", "fixup_rows_over",
-            "ring_slots_new", "h2d_bytes", "d2h_bytes"}
+            "ring_slots_new", "h2d_bytes", "d2h_bytes",
+            "early_finalize_batches"}
 
 
 class _Text:
@@ -156,6 +157,7 @@ def test_spans_change_no_byte_and_nest(port, engine):
     assert count("pre") == count("finalize") == count("emit") == 4
     assert sum(s.attrs["pairs"] for s in spans if s.name == "emit") == 200
     assert counts["ring_slots_new"] == 5
+    assert counts["early_finalize_batches"] == 3
     assert counts["h2d_bytes"] == counts["d2h_bytes"] == 0  # no card
     if engine == "tpu":
         assert counts["device_steps"] == count("launch") == 4
@@ -167,6 +169,44 @@ def test_spans_change_no_byte_and_nest(port, engine):
                                         + counts["fixup_rows_over"])
     else:
         assert counts["device_steps"] == counts["fixup_rows"] == 0
+
+
+@pytest.mark.parametrize("batch,batches", [(256, 1), (100, 2), (19, 11),
+                                           (8, 25)])
+def test_early_finalize_counter(port, batch, batches):
+    """``early_finalize_batches``, on the job span and in
+    engine_counters(): each batch's finalize goes to the worker at its
+    dispatch, so every batch but the last is counted, at the CLI's
+    depth of 10 too. Like the other engine counters it is counted with
+    tracing off as well, and then no span carries it."""
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    from pandaseq_tpu_torch.io import native
+
+    port.setenv("PANDASEQ_TPU_BATCH", str(batch))
+    port.setenv("PANDASEQ_TPU_ENGINE", "tpu")
+    assert traced_run()[0] == 0
+    (_, counts), = tracing.collected().jobs.items()
+    job, = [s for s in tracing.collected().spans if s.name == "job"]
+    assert counts["batches"] == batches
+    assert job.attrs["early_finalize_batches"] == batches - 1
+    assert counts["early_finalize_batches"] == batches - 1
+
+    def stream():
+        asm = BatchAssembler(L=512)
+        rdr = native.NativeBatchReader(ARGV[1], ARGV[3], batch=batch, L=512)
+        for _ in asm.emit_stream(rdr, depth=10, threaded=True):
+            pass
+        return asm.engine_counters()
+
+    tracing.enable()
+    try:
+        assert stream()["early_finalize_batches"] == batches - 1
+    finally:
+        tracing.disable()
+    tracing.clear()
+    assert stream()["early_finalize_batches"] == batches - 1
+    assert not tracing.collected().spans
+    assert not tracing.collected().jobs
 
 
 def test_spans_agree_with_the_benchmark_wrappers(port, tmp_path):
