@@ -52,6 +52,22 @@ def host_probe() -> dict:
     return {"loop_s": t1 - t0, "touch_s": t2 - t1, "copy_s": t3 - t2}
 
 
+def dirty_kb() -> dict:
+    """/proc/meminfo's Dirty and Writeback (kB): page cache not yet on
+    the disk, read at the window's start and end (where /proc has them;
+    a sandbox's may read 0 whatever the host holds)."""
+    out = {}
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                key, _, rest = line.partition(":")
+                if key in ("Dirty", "Writeback"):
+                    out[key] = int(rest.split()[0])
+    except OSError:
+        pass
+    return out
+
+
 def fifths(jobs, t_start, t_end) -> list:
     """Pairs per second of the jobs that ended in each fifth of the
     window: a window that warms up, or slows down, shows here."""
@@ -103,6 +119,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_process0: float,
                 raise RuntimeError("the warm-up job failed: %s" % job.rc)
         marks.append(time.perf_counter())
         spans = tracer = None
+        dirty0 = dirty_kb()
         ru0 = resource.getrusage(resource.RUSAGE_SELF)
         if trace:
             spans = Spans()
@@ -116,6 +133,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_process0: float,
             window = jobs.run_window(main, cfg, samples, seconds)
         done, t_start, t_end, cpu_s = window
         ru1 = resource.getrusage(resource.RUSAGE_SELF)
+        dirty1 = dirty_kb()
         memory = torch.cuda.max_memory_allocated() if on_card else 0
         probe = host_probe()
         reduced = None
@@ -157,6 +175,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_process0: float,
                       "window_sys_s": ru1.ru_stime - ru0.ru_stime,
                       "window_fifths_pairs_per_s": fifths(
                           done, t_start, t_end),
+                      "window_dirty_kb": [dirty0, dirty1],
                       "host_probe_s": probe}
     result["checks"] = {n: {"value": v, "limit": lim,
                             "holds": "at most" if op == "max"

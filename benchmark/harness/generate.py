@@ -12,8 +12,14 @@ errors at each base's PHRED rate. A configuration with ``primers_in_reads`` puts
 primer at the amplicon's 5' end and its reverse primer's reverse
 complement at the 3' end, each degenerate base resolved to a matching
 base at random per pair, as the reads of a locus-specific library begin
-with the primers. The traffic's ``r2_cut`` cuts each reverse read to a
-length drawn uniformly from it, as smoke phase 8's ``cut_r2`` does.
+with the primers. A configuration whose amplicons may be shorter than
+the reads names the adapter each read runs into past the amplicon's end
+(``adapter_r1``, ``adapter_r2``, each as it reads in its read's 5' to 3'
+direction); past the adapter the read goes on in random bases, with
+qualities and errors drawn as for the rest of it. Without those keys,
+amplicons shorter than the reads are refused. The traffic's ``r2_cut``
+cuts each reverse read to a length drawn uniformly from it, as smoke
+phase 8's ``cut_r2`` does.
 
 Sample sizes are fixed by the traffic (quantiles of a log-normal); the
 seed draws only the reads. Sample ``i`` of ``n`` holds the pool records
@@ -125,13 +131,15 @@ def make_pool(config: dict, traffic: dict, n: int, seed: int,
     g = _generator(seed, 1, device)
     rl = config["read_len"]
     amp_min, amp_max = config["amplicon"]
-    if amp_min < rl:
-        raise ValueError("amplicons shorter than the reads")
+    adapters = (config.get("adapter_r1"), config.get("adapter_r2"))
+    if amp_min < rl and not all(adapters):
+        raise ValueError("amplicons shorter than the reads, and no "
+                         "adapter_r1 and adapter_r2 to read through into")
     bases = torch.tensor(BASES, device=device)
     comp = torch.tensor(COMP, device=device)
     amp_len = torch.randint(amp_min, amp_max + 1, (n,), generator=g,
                             device=device)
-    amp = bases[torch.randint(0, 4, (n, amp_max), generator=g,
+    amp = bases[torch.randint(0, 4, (n, max(amp_max, rl)), generator=g,
                               device=device)]
     rows = torch.arange(n, device=device)[:, None]
     if config.get("primers_in_reads"):
@@ -140,9 +148,24 @@ def make_pool(config: dict, traffic: dict, n: int, seed: int,
         amp[:, :fwd.shape[1]] = fwd
         amp[rows, amp_len[:, None] - rev.shape[1]
             + torch.arange(rev.shape[1], device=device)] = rev
-    ridx = amp_len[:, None] - 1 - torch.arange(rl, device=device)[None, :]
+    pos = torch.arange(rl, device=device)[None, :]
+    ridx = (amp_len[:, None] - 1 - pos).clamp(min=0)
+    pairs = [amp[:, :rl], comp[amp[rows, ridx].long()]]
+    if amp_min < rl:
+        # read-through: past the amplicon's end each read runs into its
+        # adapter, then into random bases (a stream of its own, so that
+        # configurations without read-through draw as they always did)
+        gt = _generator(seed, 4, device)
+        past = (pos - amp_len[:, None]).clamp(min=0)
+        for which, adapter in enumerate(adapters):
+            ad = torch.tensor(list(adapter.encode()), dtype=torch.uint8,
+                              device=device)
+            tail = torch.cat([ad.expand(n, len(ad)), bases[torch.randint(
+                0, 4, (n, rl), generator=gt, device=device)]], dim=1)
+            pairs[which] = torch.where(pos < amp_len[:, None],
+                                       pairs[which], tail.gather(1, past))
     seq, qual = [], []
-    for reads in (amp[:, :rl], comp[amp[rows, ridx].long()]):
+    for reads in pairs:
         s, q = _corrupt(g, reads, rl)
         seq.append(s.cpu().numpy())
         qual.append(q.cpu().numpy())

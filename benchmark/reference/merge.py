@@ -41,21 +41,57 @@ PRECISIONS = {"float64": float, "float32": _to_float32}
 
 
 def parse_flags(flags, precision="float64") -> oracle.OracleConfig:
-    """An OracleConfig from the CLI flags a configuration passes: the
-    primers ``-p`` and ``-q``, which are all that the configurations
-    pass. Any other flag raises ValueError; a configuration that needs
-    one brings it here."""
+    """An OracleConfig from the CLI flags a configuration passes, read as
+    pandaseq reads them (args.c and the setters of assembler_support.c):
+
+    - ``-p`` / ``-q``: the forward / reverse primer;
+    - ``-o N``: the least overlap, N in [1, 900]; the setter keeps the
+      default 2 unless 1 < N < 900;
+    - ``-O N``: the greatest overlap, N in [0, 900] (0: the reads'
+      length); the setter ignores 900;
+    - ``-t X``: the threshold, X in [0, 1], kept as log(X);
+    - ``-k N``: the k-mers kept per position, N in [0, 127].
+
+    Any other flag, a flag given twice (as the CLI refuses it), or a value
+    out of its range raises ValueError; a configuration that needs
+    another flag brings it here."""
     fp = PRECISIONS[precision]
     cfg = oracle.OracleConfig(algorithm=oracle.SimpleBayes(fp=fp), fp=fp)
     it = iter(flags)
+    seen = set()
     for flag in it:
+        if flag in seen:
+            raise ValueError("%s is given twice" % flag)
+        seen.add(flag)
         if flag == "-p":
             cfg.forward_primer = _primer(next(it), nt_from_ascii)
         elif flag == "-q":
             cfg.reverse_primer = _primer(next(it), nt_from_ascii_complement)
+        elif flag == "-o":
+            v = _number(flag, next(it), int, 1, 2 * MAX_LEN)
+            if 1 < v < 2 * MAX_LEN:
+                cfg.minoverlap = v
+        elif flag == "-O":
+            v = _number(flag, next(it), int, 0, 2 * MAX_LEN)
+            if v < 2 * MAX_LEN:
+                cfg.maxoverlap = v
+        elif flag == "-t":
+            cfg.threshold = math.log(_number(flag, next(it), float, 0, 1))
+        elif flag == "-k":
+            cfg.num_kmers = _number(flag, next(it), int, 0, 127)
         else:
             raise ValueError("the reference does not implement %s" % flag)
     return cfg
+
+
+def _number(flag, text, kind, lo, hi):
+    try:
+        v = kind(text)
+    except ValueError:
+        v = None
+    if v is None or not lo <= v <= hi:
+        raise ValueError("bad value %r for %s" % (text, flag))
+    return v
 
 
 def _primer(text, conv):

@@ -2,15 +2,26 @@
 against the port's CLI, the float32 control, and the faults a run must
 come out false on."""
 
+import json
+import os
 import time
 
 import numpy as np
 import pytest
 
-from harness import cell, check, generate, spec
+from harness import cell, check, generate, jobs, spec
 
 CELLS = ("v3v4_2x300.samples", "v4_2x250.small_samples",
          "v3v4_2x300.r2trim_samples")
+# a configuration no cell runs yet: ITS1 amplicons of 200-600 bp on
+# 2x300 reads, so read-through, overlaps past the read length and NOALGN
+ITS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "its1_2x300.json")
+
+
+def its_config() -> dict:
+    with open(ITS) as fh:
+        return json.load(fh)
 
 
 def _traffic(name, count, median, check_pairs):
@@ -33,6 +44,34 @@ def test_reference_agrees_with_the_cli(name, cpu_port):
     assert got["pairs_checked"] == sum(
         generate.sample_sizes(tr["samples"]))
     assert r["correct"] is True, got
+
+
+@pytest.mark.parametrize("extra", [["-o", "30"], ["-O", "450"],
+                                   ["-t", "0.8"], ["-k", "0"]],
+                         ids=["-o", "-O", "-t", "-k"])
+def test_reference_agrees_with_the_cli_on_each_flag(extra, tmp_path,
+                                                    cpu_port):
+    """ITS-shaped pairs with read-through, merged with each of -o, -O, -t
+    and -k set (on top of the configuration's -p, -q and, but where -O is
+    the flag set, its -O 500): the port's CLI on the CPU prints for every
+    pair what the frozen reference prints."""
+    from pandaseq_tpu_torch.cli.main import main
+    cfg = its_config()
+    flags = cfg["flags"][:4] + (extra if extra[0] == "-O"
+                                else cfg["flags"][4:] + extra)
+    pool = generate.make_pool(cfg, {"r2_cut": None}, 500, 2 ** 31 + 18)
+    samples = generate.write_samples(pool, cfg, [500, 300], tmp_path)
+    done = [jobs.run_job(main, jobs.argv_of(dict(cfg, flags=flags), s),
+                         s.index, True) for s in samples]
+    checks, _ = check.run_checks(done, samples, flags, 10 ** 6, 18,
+                                 cpu_port, workers=4)
+    got = {n: v for n, v, _, _ in checks}
+    assert check.holds(checks), got
+    assert got["pairs_checked"] == 800
+    olp = [int(line.rsplit(b"\t", 1)[1]) for line in
+           done[0].log.data().split(b"\n")
+           if line.startswith(b"INFO\tBESTOLP\t")]
+    assert max(olp) > cfg["read_len"]
 
 
 def test_the_float32_control_fails_the_check(tmp_path):

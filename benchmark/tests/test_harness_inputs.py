@@ -133,6 +133,92 @@ def test_r2_cut_is_placed_right(tmp_path):
         assert s.bucket == (384, 256)
 
 
+# sha256 of a pool of 400 pairs at seed 2**31 + 2026 (its bases,
+# qualities and R2 lengths) and of three sample files cut from it (their
+# bytes and record offsets), taken from the tree before read-through and
+# the new flags came in: the existing cells' inputs stay byte for byte
+POOL_SHA256 = {
+    "v3v4_2x300.samples":
+        "4bf5ada326ca74ad6976aba5df54fba1f415260c35209456c913a749cb419afd",
+    "v3v4_2x300.r2trim_samples":
+        "6b7e981c10c04444dc78214d81ffbf57f753631c18617db7be6b875b8db3eb95",
+    "v4_2x250.small_samples":
+        "d4972bd44180b81e4b4cd3a9bef4ba66b99d7ff0672c2c6014bc8421f3a4dc0a",
+}
+
+
+@pytest.mark.parametrize("name", sorted(POOL_SHA256))
+def test_existing_pools_are_unchanged(name, tmp_path):
+    import hashlib
+    b = spec.bench()
+    w = spec.workload(b, name)
+    cfg = spec.config(b, w["config"])
+    pool = generate.make_pool(cfg, spec.traffic(w["traffic"]), 400,
+                              2 ** 31 + 2026)
+    h = hashlib.sha256()
+    for a in pool.seq + pool.qual + (pool.rlen,):
+        h.update(a.tobytes())
+    for s in generate.write_samples(pool, cfg, [400, 250, 120], tmp_path):
+        for path in s.paths:
+            with open(path, "rb") as fh:
+                h.update(fh.read())
+        for o in s.offsets:
+            h.update(o.tobytes())
+    assert h.hexdigest() == POOL_SHA256[name]
+
+
+def _its():
+    with open(os.path.join(HERE, "tests", "its1_2x300.json")) as fh:
+        return json.load(fh)
+
+
+def test_reads_run_through_into_the_adapter():
+    """ITS amplicons of 200-600 bp on 300 bp reads: a read that passes the
+    amplicon's end goes on into its adapter, right after the other
+    primer's reverse complement; without adapter keys such amplicons are
+    refused."""
+    cfg = _its()
+    pool = generate.make_pool(cfg, {"r2_cut": None}, 4000, 21)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    for which, other in ((0, cfg["reverse_primer"]),
+                         (1, cfg["forward_primer"])):
+        adapter = cfg["adapter_r%d" % (which + 1)].encode()
+        before = other.encode().translate(comp)[::-1]
+        reads = [r.tobytes() for r in pool.seq[which]]
+        hits = [r.find(adapter) for r in reads]
+        at = [(r, h) for r, h in zip(reads, hits) if h >= len(before)]
+        # amplicons under 300 bp: about a quarter, less the reads whose
+        # adapter carries a substitution
+        assert 0.15 < len(at) / len(reads) < 0.26
+        same = [sum(x == y for x, y in zip(r[h - len(before):h], before))
+                / len(before) for r, h in at]
+        assert np.median(same) == 1.0 and np.mean(same) > 0.95
+    assert pool.qual[0].min() >= 35 and pool.qual[0].max() <= 73
+    no_adapter = {k: v for k, v in cfg.items() if not k.startswith("adapter")}
+    with pytest.raises(ValueError, match="shorter than the reads"):
+        generate.make_pool(no_adapter, {"r2_cut": None}, 10, 21)
+
+
+def test_reference_reads_the_flags_as_the_cli():
+    import math
+    from reference.merge import parse_flags
+    cfg = parse_flags(["-p", "CTTGGTCATTTAGAGGAAGTAA", "-q",
+                       "GCTGCGTTCTTCATCGATGC", "-o", "30", "-O", "500",
+                       "-t", "0.8", "-k", "3"])
+    assert (cfg.minoverlap, cfg.maxoverlap, cfg.num_kmers) == (30, 500, 3)
+    assert cfg.threshold == math.log(0.8)
+    assert len(cfg.forward_primer) == 22 and len(cfg.reverse_primer) == 20
+    # the setters' silent guards: -o 1 and -o 900 keep 2, -O 900 keeps 0
+    assert parse_flags(["-o", "1"]).minoverlap == 2
+    assert parse_flags(["-o", "900"]).minoverlap == 2
+    assert parse_flags(["-O", "900"]).maxoverlap == 0
+    for bad in (["-A", "pear"], ["-F"], ["-o", "0"], ["-O", "901"],
+                ["-t", "1.5"], ["-k", "128"], ["-k", "x"],
+                ["-O", "400", "-O", "500"]):
+        with pytest.raises(ValueError):
+            parse_flags(bad)
+
+
 def test_every_name_loads():
     b = spec.bench()
     cells = [w["name"] for w in b["workloads"]]
@@ -303,6 +389,74 @@ def test_a_config_a_cell_and_a_metric_come_as_new_files(tmp_path,
     r = json.loads(p.stdout.strip().splitlines()[-1])
     assert r["correct"] is True
     assert r["metrics"]["jobs_per_s"]["value"] > 0
+    assert {p: open(os.path.join(HERE, p), "rb").read()
+            for p in _files(HERE)} == before
+
+
+LONGEST_OVERLAP = '''
+def read(run):
+    """The longest BESTOLP overlap of a merged pair, over the jobs that
+    kept their whole output."""
+    best = None
+    for job in run.jobs:
+        if not job.out.keep:
+            continue
+        heads = job.out.data().split(b"\\n")[0::2]
+        merged = {h[1:h.rfind(b";")] for h in heads if h}
+        for line in job.log.data().split(b"\\n"):
+            if line.startswith(b"INFO\\tBESTOLP\\t"):
+                _, _, sid, olp = line.split(b"\\t")
+                if sid in merged:
+                    best = max(-1 if best is None else best, int(olp))
+    return best
+'''
+
+
+def test_an_its_deployment_comes_as_new_files(tmp_path, cpu_port):
+    """The ITS1 2x300 deployment (amplicons of 200-600 bp, so reads that
+    run through into the adapter, -O 500 and NOALGN), a traffic mix, a
+    cell and a metric added as new files to a copy: the new cell runs
+    correct on the CPU and merges pairs whose overlap is longer than a
+    read."""
+    shutil.copytree(HERE, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    before = {p: open(os.path.join(HERE, p), "rb").read()
+              for p in _files(HERE)}
+    bench = tmp_path / "benchmark"
+    shutil.copy(os.path.join(HERE, "tests", "its1_2x300.json"),
+                bench / "configs" / "its1_2x300.json")
+    (bench / "traffic" / "its1_tiny.json").write_text(json.dumps(
+        {"config": "its1_2x300", "check_pairs": 1000,
+         "samples": {"count": 2, "median_pairs": 300, "sigma": 0.5},
+         "r2_cut": None, "why": "a test's cell"}))
+    (bench / "metrics" / "longest_merged_overlap.py").write_text(
+        LONGEST_OVERLAP)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
+        b = json.load(fh)
+    b["configs"].append({"name": "its1_2x300", "source": "a test",
+                         "file": "benchmark/configs/its1_2x300.json",
+                         "reduced": [], "why": "a test"})
+    b["workloads"].append({"name": "its1_2x300.tiny", "config": "its1_2x300",
+                           "traffic": "its1_tiny", "chips": 1,
+                           "why": "a test"})
+    b["per_layer"].append({"name": "longest_merged_overlap", "unit": "bp",
+                           "better": "higher", "source": "program_counter",
+                           "layer": "cli", "moves": "pairs_per_s",
+                           "workloads": ["its1_2x300.tiny"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    code = ("import sys, json, time; sys.path[:0] = [%r, %r]; "
+            "from harness import cell; "
+            "r, c = cell.run('its1_2x300.tiny', 2 ** 31 + 500, 1.0, True, "
+            "time.perf_counter(), engine=%r, workers=2); "
+            "print(json.dumps(r))" % (str(bench), ROOT, cpu_port))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path, env=dict(os.environ))
+    assert p.returncode == 0, p.stderr[-3000:]
+    r = json.loads(p.stdout.strip().splitlines()[-1])
+    assert r["correct"] is True, r["checks"]
+    assert r["checks"]["pairs_off_reference"]["value"] == 0
+    assert r["checks"]["pairs_checked"]["value"] > 400
+    assert r["metrics"]["longest_merged_overlap"]["value"] > 300
     assert {p: open(os.path.join(HERE, p), "rb").read()
             for p in _files(HERE)} == before
 
