@@ -855,6 +855,12 @@ class BatchAssembler:
         # rows with more than CAND_LIST_C candidates
         self._fixup_rows_n = 0
         self._fixup_rows_over = 0
+        # counted only while tracing is on (_count_traced): SLOW rows,
+        # their selection loops' ns summed over threads, and pairs whose
+        # best overlap is longer than the shorter read
+        self._slow_rows = 0
+        self._slow_scan_ns = 0
+        self._readthrough = 0
         self._h2d_bytes = 0  # _launch's uploads to a card
         self._d2h_bytes = 0  # and its downloads
         # batches of the threaded pipeline whose finalize went to the
@@ -872,6 +878,9 @@ class BatchAssembler:
                 "fixup_rows": self._fixup_rows_n + self._fixup_rows_over,
                 "fixup_rows_n": self._fixup_rows_n,
                 "fixup_rows_over": self._fixup_rows_over,
+                "slow_rows": self._slow_rows,
+                "slow_scan_ns": self._slow_scan_ns,
+                "readthrough_pairs": self._readthrough,
                 "h2d_bytes": self._h2d_bytes,
                 "d2h_bytes": self._d2h_bytes,
                 "early_finalize_batches": self._early_finalize}
@@ -1692,9 +1701,10 @@ class BatchAssembler:
                 st["batch"], st["skip"], st["fo"], st["ro"], plane,
                 self.SL, fb, self._algo_params, self._cfg_params,
                 self._ptbl, self._phtbl, 0, want_arrays=True,
-                plane_kind=pk, arrays_buf=ab)
+                plane_kind=pk, arrays_buf=ab, trace=sp is not None)
             if sp is not None:
                 tracing.end(sp)
+                self._count_traced(st, r)
             return self._emit_with_modules(st, r, fmt)
         # no arrays_buf reuse here: _results_from_native hands out
         # views into ascii/pidx, which must outlive the next batch
@@ -1708,12 +1718,27 @@ class BatchAssembler:
             st["batch"], st["skip"], st["fo"], st["ro"], plane, self.SL,
             fb, self._algo_params, self._cfg_params, self._ptbl,
             self._phtbl, fmt, want_arrays=(fmt == 0),
-            payload_buf=self._payload_buf, plane_kind=pk)
+            payload_buf=self._payload_buf, plane_kind=pk,
+            trace=sp is not None)
         if sp is not None:
             tracing.end(sp)
+            self._count_traced(st, r)
         if emit is not None:
             return self._emit_from_native(st, r, emit)
         return self._results_from_native(st, r)
+
+    def _count_traced(self, st, r):
+        """A traced batch's SLOW rows (psq_finalize scored every overlap
+        in range), their selection loops' ns summed over the native
+        threads, and its pairs scored at a best overlap longer than the
+        shorter read."""
+        osc = r["osc"]
+        batch = st["batch"]
+        self._slow_rows += int(np.count_nonzero(osc[:, 5] & 2))
+        self._slow_scan_ns += r["slow_scan_ns"]
+        shorter = np.minimum(batch.flen, batch.rlen)
+        self._readthrough += int(np.count_nonzero(
+            ((osc[:, 5] & 1) != 0) & (osc[:, 0] > shorter)))
 
     def _emit_with_modules(self, st, r, fmt):
         """Emit fast path with vectorized filter modules: threshold

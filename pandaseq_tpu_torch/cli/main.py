@@ -24,6 +24,7 @@ import getopt
 import math
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -457,9 +458,13 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
             reader = reader_wrapper(reader, logger)
     else:
         reader = native_reader
+    # handle_reject's calls and the main thread's ns in them (with the
+    # BESTOLP flush before each), counted in traced batches only
+    rejects = {"reject_rows": 0, "reject_emit_ns": 0}
     job.counters = lambda: dict(
         asm.engine_counters(), ring_slots_new=(
-            native_reader.ring_slots_new if native_reader else 0))
+            native_reader.ring_slots_new if native_reader else 0),
+        **rejects)
 
     some_seqs = False
 
@@ -492,7 +497,10 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
 
     done = 0
 
-    def handle_reject(pair, code, res):
+    def handle_reject(pair, code, res, flush=None, timed=False):
+        t0 = time.perf_counter_ns() if timed else 0
+        if flush is not None:
+            flush()
         if code == "LOWQ":
             logger.write("LOWQ", sid=res.sid if res else pair.sid,
                          message="%f < %f"
@@ -503,6 +511,9 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
             logger.write(code, sid=pair.sid, flag=stats.DEBUG_STAT)
         if fail_stream is not None and code == "NOALGN":
             fail_stream.write(fail_fmt(pair))
+        if timed:
+            rejects["reject_rows"] += 1
+            rejects["reject_emit_ns"] += time.perf_counter_ns() - t0
 
     log_bestolp = bool(c.debug_flags & stats.DEBUG_BUILD)
     # detailed per-base tracing (-d K/R/M) replays each pair through the
@@ -586,7 +597,7 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
                         reporter.print_time(next_mark)
                         next_mark += 1000
                     code, res = codes[i]
-                    handle_reject(pairs[i], code, res)
+                    handle_reject(pairs[i], code, res, timed=sp is not None)
                 while next_mark <= done + nb:
                     reporter.print_time(next_mark)
                     next_mark += 1000
@@ -623,8 +634,8 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
                     if code == "OK":
                         some_seqs = True
                     else:
-                        flush_chunks()
-                        handle_reject(pairs[i], code, res)
+                        handle_reject(pairs[i], code, res, flush_chunks,
+                                      sp is not None)
                     if done % 1000 == 0:
                         flush_chunks()
                         reporter.print_time(done)
@@ -676,7 +687,7 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
                     out_stream.write(fmt(res))
                     some_seqs = True
                 else:
-                    handle_reject(pair, code, res)
+                    handle_reject(pair, code, res, timed=sp is not None)
                 if done % 1000 == 0:
                     reporter.print_time(done)
             if sp is not None:

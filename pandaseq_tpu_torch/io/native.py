@@ -6,8 +6,9 @@ hot path never materializes per-read Python objects; per-pair views are
 created lazily only for module prechecks / oracle fallbacks.
 
 The PyTorch port's copy of ``pandaseq_tpu/io/native.py``, unchanged but for its
-imports, its source, where the library goes and the reader's ``decode``
-span and ``ring_slots_new`` counter (tracing.py): it compiles the port's own
+imports, its source, where the library goes, the reader's ``decode``
+span and ``ring_slots_new`` counter and ``finalize``'s SLOW-row clock
+(tracing.py): it compiles the port's own
 copy of the host engine, ``pandaseq_tpu_torch/native/psq_io.cpp`` (shipped
 with the package), into ``native/`` under ``_paths.build_root()`` (``build/``
 in a checkout, ``~/.cache/pandaseq_tpu_torch`` once installed), under a
@@ -136,7 +137,8 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,     # ascii,pidx,L2
         ctypes.c_void_p, ctypes.c_long,                      # payload
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]     # counters,hist
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,     # counters,hist
+        ctypes.c_void_p]                                     # slow_ns
     lib.psq_cand_mask.restype = None
     lib.psq_cand_mask.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -326,11 +328,15 @@ def emit(ascii_arr, pidx_arr, seq_len, quality, emit_mask, ids, phtbl,
 
 def finalize(batch, skip, fo, ro, plane, SL, fb, algo_params, cfg_params,
              ptbl, phtbl, fmt, want_arrays=False, L2cap=928,
-             payload_buf=None, plane_kind=0, arrays_buf=None):
+             payload_buf=None, plane_kind=0, arrays_buf=None,
+             trace=False):
     """One native pass: exact f64 selection from the device shortlist,
     reconstruction, quality, and (fmt 1=fasta / 2=fastq) payload bytes.
-    Returns dict with codes/osc/quality/best/payload(+ascii/pidx).
-    None when the native library is unavailable.
+    Returns dict with codes/osc/quality/best/payload(+ascii/pidx), and
+    ``slow_scan_ns``: with ``trace``, the nanoseconds of the SLOW rows'
+    selection loops on their threads' steady clocks, summed over the
+    OpenMP threads (0, and no clock read, without it). None when the
+    native library is unavailable.
 
     arrays_buf: optional (ascii, pidx) planes to reuse across calls
     (22 MB/batch of fresh zeroing otherwise). Rows the per-pair body
@@ -382,6 +388,7 @@ def finalize(batch, skip, fo, ro, plane, SL, fb, algo_params, cfg_params,
     fbo32 = np.ascontiguousarray(fb_besto, np.int32)
     fba8 = np.ascontiguousarray(fb_aligned, np.uint8)
     fbb64 = np.ascontiguousarray(fb_best, np.float64)
+    slow_ns = np.zeros(1, dtype=np.int64) if trace else None
     n = lib.psq_finalize(
         batch.fwd_nt.ctypes.data, batch.fwd_q.ctypes.data,
         batch.rev_nt.ctypes.data, batch.rev_q.ctypes.data,
@@ -403,13 +410,15 @@ def finalize(batch, skip, fo, ro, plane, SL, fb, algo_params, cfg_params,
         codes.ctypes.data, osc.ctypes.data, oqual.ctypes.data,
         obest.ctypes.data, a_ptr, p_ptr, L2cap,
         payload_buf.ctypes.data, payload_buf.nbytes,
-        counters.ctypes.data, hist.ctypes.data, 1024)
+        counters.ctypes.data, hist.ctypes.data, 1024,
+        slow_ns.ctypes.data if trace else None)
     if n < 0:
         raise RuntimeError("psq_finalize payload overflow")
     return dict(codes=codes, osc=osc, quality=oqual, best=obest,
                 payload=bytes(payload_buf[:n]) if fmt else b"",
                 counters=counters, hist=hist, ascii=ascii_out,
-                pidx=pidx_out)
+                pidx=pidx_out,
+                slow_scan_ns=int(slow_ns[0]) if trace else 0)
 
 
 class IdStr(str):

@@ -27,6 +27,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 #include <string>
 #include <vector>
 
@@ -2292,7 +2293,11 @@ void psq_pack4(const int8_t *nt_pack, long B, long stride, long Lb,
 // Batch finalization. plane is the device shortlist [B, W] int32 with
 // W = 2*SL + 4 (see ops/fused2.py). fmt: 0 = arrays only (general
 // path), 1 = FASTA payload, 2 = FASTQ payload. Returns payload length
-// (0 when fmt == 0), or -1 if payload_cap would overflow.
+// (0 when fmt == 0), or -1 if payload_cap would overflow. slow_ns, when
+// not null (a traced job), gains the nanoseconds the SLOW rows' selection
+// loops take, each on its thread's steady clock, summed over the threads
+// (a thread CPU clock may tick in 10 ms on some hosts, far above one
+// row's loop); null reads no clock.
 long psq_finalize(
     const int8_t *fr_nt, const int8_t *fr_q, const int8_t *rr_nt,
     const int8_t *rr_q, const int32_t *flen_a, const int32_t *rlen_a,
@@ -2309,7 +2314,7 @@ long psq_finalize(
     uint8_t *codes, int32_t *osc, double *oqual, double *obest,
     uint8_t *ascii_out, int16_t *pidx_out, long L2cap,
     uint8_t *payload, long payload_cap,
-    int64_t *counters, int64_t *hist, long hist_cap) {
+    int64_t *counters, int64_t *hist, long hist_cap, int64_t *slow_ns) {
     // counters layout: [ok, lowq, noalgn, badread, nofp, norp, slow]
     // the per-pair shortlist staging below uses fixed 32-entry stack
     // buffers (long oo/mv/mmv[32]); reject a wider shortlist outright
@@ -2405,6 +2410,9 @@ long psq_finalize(
             if (fmt) bump(counters[6]);
         }
         oscr[4] = (int32_t) examined;
+        struct timespec slow_t0;
+        bool timed = slow && slow_ns != nullptr;
+        if (timed) clock_gettime(CLOCK_MONOTONIC, &slow_t0);
 
         // ---- selection: exact f64 first-strict-max over the
         // shortlist, ascending o (assembler.c:125-134) ----
@@ -2473,6 +2481,16 @@ long psq_finalize(
                     besto = oo[s];
                 }
             }
+        }
+        if (timed) {
+            struct timespec t1;
+            clock_gettime(CLOCK_MONOTONIC, &t1);
+            int64_t ns = (int64_t) (t1.tv_sec - slow_t0.tv_sec)
+                * 1000000000 + (t1.tv_nsec - slow_t0.tv_nsec);
+#ifdef _OPENMP
+#pragma omp atomic
+#endif
+            *slow_ns += ns;
         }
         // BESTOLP is logged for every align-attempted pair BEFORE the
         // bestoverlap == -1 / length-check returns (assembler.c:139),

@@ -25,7 +25,10 @@ and on the trace's own clock.
 Spans are kept in memory, at most ``CAP`` of them (``dropped`` counts
 the rest), until ``clear()``; ``collected()`` returns them with each
 job's counters (``BatchAssembler.engine_counters()``, the reader's
-``ring_slots_new``).
+``ring_slots_new``, the CLI's ``reject_rows`` and ``reject_emit_ns``).
+``slow_rows``, ``slow_scan_ns``, ``readthrough_pairs`` and the two
+``reject_`` counters grow in traced batches only: their sites read a
+clock or scan a batch, so untraced they test the flag and do nothing.
 """
 
 from __future__ import annotations

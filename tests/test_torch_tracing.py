@@ -36,6 +36,11 @@ COUNTERS = {"pairs", "batches", "device_steps", "overflow_reroutes",
             "fixup_rows", "fixup_rows_n", "fixup_rows_over",
             "ring_slots_new", "h2d_bytes", "d2h_bytes",
             "early_finalize_batches"}
+# counted in traced batches only: the SLOW rows' scans, read-through and
+# the CLI's reject path
+TRACED_ONLY = ("slow_rows", "slow_scan_ns", "readthrough_pairs",
+               "reject_rows", "reject_emit_ns")
+COUNTERS |= set(TRACED_ONLY)
 
 
 class _Text:
@@ -302,3 +307,76 @@ def test_cli_profile_holds_the_spans_of_three_threads(port, tmp_path):
         l["ts"] <= o["ts"] and o["ts"] + o["dur"] <= l["ts"] + l["dur"]
         for l in launches)]
     assert inside
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_traced_only_counters_sit_on_every_job(port, engine, tmp_path):
+    """The five counters of SLOW rows, read-through and rejects on a
+    traced job: on the synth reads they agree with the log (STAT SLOW,
+    the pairs not OK, no BESTOLP overlap longer than the shorter read,
+    since no -O lets one be) and their times are positive; a traced job
+    on empty inputs carries all five, each 0."""
+    port.setenv("PANDASEQ_TPU_ENGINE", engine)
+    rc, _, log = traced_run()
+    assert rc == 0
+    (_, counts), = tracing.collected().jobs.items()
+    assert counts["slow_rows"] == stat(log, "SLOW") > 0
+    assert counts["reject_rows"] == stat(log, "READS") - stat(log, "OK") > 0
+    assert counts["slow_scan_ns"] > 0 and counts["reject_emit_ns"] > 0
+    assert re.findall(rb"INFO\tBESTOLP\t", log)
+    assert counts["readthrough_pairs"] == 0
+
+    tracing.clear()
+    for name in ("e_1.fastq", "e_2.fastq"):
+        (tmp_path / name).write_bytes(b"")
+    tracing.enable()
+    try:
+        run_cli(["-f", str(tmp_path / "e_1.fastq"),
+                 "-r", str(tmp_path / "e_2.fastq")])
+    finally:
+        tracing.disable()
+    (_, counts), = tracing.collected().jobs.items()
+    assert counts["pairs"] == 0
+    assert {k: counts[k] for k in TRACED_ONLY} == dict.fromkeys(
+        TRACED_ONLY, 0)
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_untraced_job_counts_nothing_and_reads_no_clock(port, engine):
+    """With tracing off the five traced-only counters' sites test the
+    flag and do nothing: the native finalizer is never asked for its
+    SLOW-row clock, no batch is scanned for them, no clock is read, no
+    job is recorded; the bytes are those of a traced run."""
+    from pandaseq_tpu_torch.assembler import BatchAssembler
+    from pandaseq_tpu_torch.io import native
+
+    port.setenv("PANDASEQ_TPU_ENGINE", engine)
+    on = traced_run()
+    tracing.clear()
+    asked = []
+    finalize = native.finalize
+
+    def spy(*a, **kw):
+        asked.append(kw.get("trace", False))
+        return finalize(*a, **kw)
+
+    def no_scan(*a):
+        raise AssertionError("_count_traced ran with tracing off")
+
+    reads = []
+    clock = time.perf_counter_ns
+
+    def counted():
+        reads.append(1)
+        return clock()
+
+    port.setattr(native, "finalize", spy)
+    port.setattr(BatchAssembler, "_count_traced", no_scan)
+    port.setattr(time, "perf_counter_ns", counted)
+    off = run_cli()
+    port.setattr(time, "perf_counter_ns", clock)
+    assert off[0] == 0 and off[1] == on[1]
+    assert stable_log(off[2]) == stable_log(on[2])
+    assert asked and not any(asked)
+    assert reads == []
+    assert not tracing.collected().jobs and not tracing.collected().spans
