@@ -1802,10 +1802,15 @@ class BatchAssembler:
                        int((codes == 4).sum()), slow_n], dtype=np.int64)
         hist_full = np.zeros(1024, dtype=np.int64)
         hist_full[:len(hist)] = hist
+        # the rows' codes as the CLI's log lines read them: the
+        # threshold and module verdicts folded into psq_finalize's
+        code = codes.copy()
+        code[lowq] = _CODE_NAMES.index("LOWQ")
+        code[module_rej] = _CODE_NAMES.index("MODULE")
         extras = dict(scored=(osc[:, 5] & 1) != 0,
                       overlap=osc[:, 0].astype(np.int64),
-                      counters_delta=cc, hist_delta=hist_full,
-                      nonok_rows=nonok_rows)
+                      counters_delta=cc, hist_delta=hist_full, code=code,
+                      quality=r["quality"], ids=st["batch"].ids_bytes())
         return out, payload, extras
 
     def _emit_from_native(self, st, r, emit):
@@ -1842,7 +1847,8 @@ class BatchAssembler:
                       # per-batch deltas for per-thread STAT attribution
                       # (pool.c:83-104 prints each assembler's tallies)
                       counters_delta=cc.copy(), hist_delta=hist,
-                      nonok_rows=nonok_rows)
+                      code=codes, quality=r["quality"],
+                      ids=st["batch"].ids_bytes())
         return out, r["payload"], extras
 
     def _results_from_native(self, st, r):
@@ -2036,7 +2042,13 @@ class BatchAssembler:
         sequential) from the batch's dispatch on, overlapping the next
         batches' dispatch and the consumer's work — the pool.c
         worker/reader overlap, host-side. ``group`` stacks
-        that many consecutive batches into one device dispatch."""
+        that many consecutive batches into one device dispatch.
+
+        ``extras`` holds what the CLI's log lines read without the
+        ``codes`` objects: each row's ``scored`` flag, best ``overlap``,
+        ``code`` (a ``_CODE_NAMES`` index, threshold and module verdicts
+        included) and log ``quality``, the batch's ``ids`` bytes, and the
+        counter and histogram deltas of ``-T N``."""
         assert not self.cfg.post_primers
         assert all(m.check is None or m.check_batch is not None
                    for m in self.modules)

@@ -30,7 +30,7 @@ import numpy as np
 
 from .. import filters, oracle, stats, tracing
 from .. import seqid as seqid_mod
-from ..assembler import BatchAssembler, Counters
+from ..assembler import _CODE_NAMES, BatchAssembler, Counters
 from ..io import fastq as fq
 from ..io import native
 from ..io import output as out_mod
@@ -41,6 +41,7 @@ __all__ = ["Config", "main", "parse_args", "run"]
 
 VERSION = "pandaseq_tpu 1.0 (pandaseq 2.11 compatible)"
 MAX_LEN = 450
+NOALGN = _CODE_NAMES.index("NOALGN")
 
 # flag -> takes_argument (merged general+fastq+assembler tweak tables)
 _OPTSTRING = "6aA:BC:d:D:f:Fg:G:hi:jk:l:L:No:O:p:q:r:t:T:u:U:vw:W:"
@@ -458,13 +459,14 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
             reader = reader_wrapper(reader, logger)
     else:
         reader = native_reader
-    # handle_reject's calls and the main thread's ns in them (with the
-    # BESTOLP flush before each), counted in traced batches only
-    rejects = {"reject_rows": 0, "reject_emit_ns": 0}
+    # the non-OK rows and the main thread's ns producing their log lines
+    # (and fail-file records), counted in traced batches only; the rows
+    # whose log lines psq_log_lines wrote, counted always
+    counts = {"reject_rows": 0, "reject_emit_ns": 0, "log_rows_native": 0}
     job.counters = lambda: dict(
         asm.engine_counters(), ring_slots_new=(
             native_reader.ring_slots_new if native_reader else 0),
-        **rejects)
+        **counts)
 
     some_seqs = False
 
@@ -497,10 +499,8 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
 
     done = 0
 
-    def handle_reject(pair, code, res, flush=None, timed=False):
+    def handle_reject(pair, code, res, timed=False):
         t0 = time.perf_counter_ns() if timed else 0
-        if flush is not None:
-            flush()
         if code == "LOWQ":
             logger.write("LOWQ", sid=res.sid if res else pair.sid,
                          message="%f < %f"
@@ -512,8 +512,8 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
         if fail_stream is not None and code == "NOALGN":
             fail_stream.write(fail_fmt(pair))
         if timed:
-            rejects["reject_rows"] += 1
-            rejects["reject_emit_ns"] += time.perf_counter_ns() - t0
+            counts["reject_rows"] += 1
+            counts["reject_emit_ns"] += time.perf_counter_ns() - t0
 
     log_bestolp = bool(c.debug_flags & stats.DEBUG_BUILD)
     # detailed per-base tracing (-d K/R/M) replays each pair through the
@@ -562,6 +562,11 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
     job.setup_done()
     if use_emit:
         emit_fmt = "fastq" if c.fastq_out else "fasta"
+        log_flags = ((native.LOG_BESTOLP if log_bestolp else 0)
+                     | (native.LOG_STAT
+                        if c.debug_flags & stats.DEBUG_STAT else 0))
+        lstream = logger.stream
+        logbuf = None  # psq_log_lines' buffer, reused by the job's batches
         # pre_stream runs the _pre stage (prechecks, primer scans) on
         # the prefetch thread, overlapped with device dispatch; each
         # batch finalizes on the worker from its dispatch on
@@ -571,77 +576,48 @@ def _run(c, argv, prog, reader_wrapper, batch_wrapper, job) -> int:
                 group=group):
             sp = tracing.begin("emit", batch_no) if tracing.ON else None
             out_stream.write(payload)
-            overlaps = extras["overlap"]
-            scored = extras["scored"]
             if vcounters is not None and "counters_delta" in extras:
                 attribute(vcounters[batch_no % threads],
                           extras["counters_delta"], extras["hist_delta"],
                           len(codes))
             batch_no += 1
-            nonok = extras.get("nonok_rows")
-            if nonok is not None and not log_bestolp:
-                # fast path: touch only rejected rows (OK rows need no
-                # per-pair Python objects); the TIME/READS blocks stay
-                # interleaved at their exact 1000-read boundaries
-                # between reject lines (pool.c:76-80 ordering)
-                nb = len(codes)
-                if len(nonok) < nb:
-                    some_seqs = True
-                next_mark = (done // 1000 + 1) * 1000
-                for i in nonok:
-                    # boundaries of records strictly before this one
-                    # print first; a reject ON the boundary record
-                    # precedes its own TIME block (the per-record loop
-                    # handled the reject before the done%1000 check)
-                    while next_mark <= done + i:
-                        reporter.print_time(next_mark)
-                        next_mark += 1000
-                    code, res = codes[i]
-                    handle_reject(pairs[i], code, res, timed=sp is not None)
-                while next_mark <= done + nb:
-                    reporter.print_time(next_mark)
-                    next_mark += 1000
-                done += nb
-            else:
-                # BESTOLP logging walks every pair (the reference's
-                # default DEBUG_BUILD behavior, assembler.c LOG): build
-                # the line bytes straight from the decoder's raw id
-                # buffer and write per batch — LogProxy + IdStr per
-                # pair measured ~25 us/line, ~2.4 s per 100k pairs
-                scored_l = scored.tolist()
-                overlaps_l = overlaps.tolist()
-                raw_ids = (pairs._b.ids_bytes()
-                           if log_bestolp and hasattr(pairs, "_b")
-                           else None)
-                chunks = []
-                lstream = logger.stream
-
-                def flush_chunks():
-                    if chunks:
-                        lstream.write(b"".join(chunks))
-                        chunks.clear()
-
-                for i, (code, res) in enumerate(codes):
-                    done += 1
-                    if log_bestolp and scored_l[i]:
-                        if raw_ids is not None:
-                            sid_b = raw_ids[i].tobytes().split(
-                                b"\0", 1)[0]
-                        else:
-                            sid_b = str(pairs[i].sid).encode()
-                        chunks.append(b"INFO\tBESTOLP\t%s\t%d\n"
-                                      % (sid_b, overlaps_l[i]))
-                    if code == "OK":
-                        some_seqs = True
-                    else:
-                        handle_reject(pairs[i], code, res, flush_chunks,
-                                      sp is not None)
-                    if done % 1000 == 0:
-                        flush_chunks()
-                        reporter.print_time(done)
-                flush_chunks()
+            # every BESTOLP and reject line of the batch in one native
+            # call without the GIL; the TIME blocks go in between at
+            # their 1000-record marks (pool.c:76-80: a reject on the
+            # boundary record precedes its own TIME block)
+            code = extras["code"]
+            nb = len(code)
+            n_rej = int(np.count_nonzero(code))
+            if n_rej < nb:
+                some_seqs = True
+            reject_ns = np.zeros(1, np.int64) if sp is not None else None
+            n, marks, logbuf = native.log_lines(
+                extras["ids"], extras["scored"], extras["overlap"], code,
+                extras["quality"], c.cfg.threshold, log_flags, done,
+                logbuf, reject_ns)
+            counts["log_rows_native"] += nb
+            view = memoryview(logbuf)
+            pos = 0
+            mark = (done // 1000 + 1) * 1000
+            for off in marks.tolist():
+                if off > pos:
+                    lstream.write(view[pos:off])
+                pos = off
+                reporter.print_time(mark)
+                mark += 1000
+            if n > pos:
+                lstream.write(view[pos:n])
+            done += nb
+            if fail_stream is not None:
+                t1 = time.perf_counter_ns() if sp is not None else 0
+                for i in np.flatnonzero(code == NOALGN).tolist():
+                    fail_stream.write(fail_fmt(pairs[i]))
+                if sp is not None:
+                    reject_ns[0] += time.perf_counter_ns() - t1
             if sp is not None:
-                tracing.end(sp, pairs=len(codes))
+                counts["reject_rows"] += n_rej
+                counts["reject_emit_ns"] += int(reject_ns[0])
+                tracing.end(sp, pairs=nb)
     else:
         import copy as _copy
         prev_snap = _copy.deepcopy(asm.counters) if vcounters else None

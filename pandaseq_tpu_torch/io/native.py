@@ -155,6 +155,13 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_long]
+    lib.psq_log_lines.restype = ctypes.c_long
+    lib.psq_log_lines.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long,       # ids, B
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # scored..
+        ctypes.c_void_p, ctypes.c_double, ctypes.c_int,      # quality..
+        ctypes.c_long, ctypes.c_void_p, ctypes.c_long,       # done, out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]   # marks, ns
     lib.psq_skip_batch.restype = ctypes.c_long
     lib.psq_skip_batch.argtypes = [ctypes.c_void_p, ctypes.c_long,
                                    ctypes.c_void_p]
@@ -324,6 +331,48 @@ def emit(ascii_arr, pidx_arr, seq_len, quality, emit_mask, ids, phtbl,
         raise RuntimeError("psq_emit payload overflow")
     return bytes(payload[:n])
 
+
+# psq_log_lines' flags: the BESTOLP lines (DEBUG_BUILD), the reject
+# lines (DEBUG_STAT)
+LOG_BESTOLP, LOG_STAT = 1, 2
+
+
+def log_lines(ids, scored, overlap, codes, quality, threshold, flags,
+              done, out=None, reject_ns=None):
+    """The CLI's per-pair log lines of one emitted batch (psq_log_lines):
+    (bytes written, the offsets after each record whose running count
+    ``done`` + row + 1 is a multiple of 1000, the buffer holding them).
+    ``codes`` are the rows' ``assembler._CODE_NAMES`` indices, ``quality``
+    their log qualities, ``threshold`` the configuration's (log). ``out``
+    is reused when it is large enough, else a larger one is made and
+    returned. ``reject_ns``, a one-element int64 array, gains the ns
+    spent on the non-OK rows (a traced job); None reads no clock. None
+    when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    B, stride = ids.shape
+    # per row: a BESTOLP line and a LOWQ line, each with the id and the
+    # longest "%d" / "%f" the line can hold
+    cap = B * (2 * stride + 900)
+    if out is None or out.nbytes < cap:
+        out = np.empty(cap, dtype=np.uint8)
+    ids = np.ascontiguousarray(ids, np.uint8)
+    sc8 = np.ascontiguousarray(scored, np.uint8)
+    ov64 = np.ascontiguousarray(overlap, np.int64)
+    cd8 = np.ascontiguousarray(codes, np.uint8)
+    q64 = np.ascontiguousarray(quality, np.float64)
+    marks = np.empty(B // 1000 + 1, dtype=np.int64)
+    n_marks = ctypes.c_long(0)
+    n = lib.psq_log_lines(
+        ids.ctypes.data, stride, B, sc8.ctypes.data, ov64.ctypes.data,
+        cd8.ctypes.data, q64.ctypes.data, float(threshold), int(flags),
+        int(done), out.ctypes.data, out.nbytes, marks.ctypes.data,
+        ctypes.byref(n_marks),
+        reject_ns.ctypes.data if reject_ns is not None else None)
+    if n < 0:
+        raise RuntimeError("psq_log_lines buffer overflow")
+    return n, marks[:n_marks.value], out
 
 
 def finalize(batch, skip, fo, ro, plane, SL, fb, algo_params, cfg_params,

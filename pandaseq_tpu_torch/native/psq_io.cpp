@@ -2720,4 +2720,94 @@ long psq_finalize(
     return plen_out;
 }
 
+// The CLI's per-pair log lines of one emitted batch, in row order (the
+// reference's LOG calls, assembler.c:120-143 and pool.c:52-80): with
+// flags & 1 (DEBUG_BUILD) "INFO\tBESTOLP\t<id>\t<overlap>\n" for each
+// scored row; then with flags & 2 (DEBUG_STAT) "ERR\tLOWQ\t<id>\t
+// <exp(quality) %f> < <exp(threshold) %f>\n" for a LOWQ row and
+// "ERR\tNOFP\t<id>\n" / "ERR\tNORP\t<id>\n"; OK, BADR, NOALGN and MODULE
+// rows write nothing more. ids is [B, id_stride], NUL-terminated. marks
+// receives, for each row whose running count done + b + 1 is a multiple
+// of 1000, the offset after that row's lines (where the caller prints its
+// TIME block), *n_marks their count (at most B / 1000 + 1). reject_ns,
+// when not null (a traced job), gains the steady clock's nanoseconds
+// spent on the non-OK rows; null reads no clock. Returns the bytes
+// written, or -1 if out_cap would overflow.
+long psq_log_lines(const char *ids, long id_stride, long B,
+                   const uint8_t *scored, const int64_t *overlap,
+                   const uint8_t *codes, const double *quality,
+                   double threshold, int flags, long done, char *out,
+                   long out_cap, int64_t *marks, long *n_marks,
+                   int64_t *reject_ns) {
+    const bool bestolp = flags & 1, stat = flags & 2;
+    char thr[400];
+    int thr_len = stat ? fmt_f6(thr, exp(threshold)) : 0;
+    char *w = out, *end = out + out_cap;
+    long nm = 0;
+    for (long b = 0; b < B; b++) {
+        const char *sid = ids + b * id_stride;
+        long sidlen = -1;
+        if (bestolp && scored[b]) {
+            sidlen = (long) strlen(sid);
+            if (end - w < 14 + sidlen + 1 + 21 + 1) return -1;
+            memcpy(w, "INFO\tBESTOLP\t", 13);
+            w += 13;
+            memcpy(w, sid, sidlen);
+            w += sidlen;
+            *w++ = '\t';
+            // "%d" by hand, as SeqId::print writes its numbers
+            uint64_t v = overlap[b] < 0 ? 0 - (uint64_t) overlap[b]
+                                        : (uint64_t) overlap[b];
+            if (overlap[b] < 0) *w++ = '-';
+            char digits[20];
+            int nd = 0;
+            do {
+                digits[nd++] = (char) ('0' + v % 10);
+                v /= 10;
+            } while (v);
+            while (nd) *w++ = digits[--nd];
+            *w++ = '\n';
+        }
+        int code = codes[b];
+        if (code != CODE_OK) {
+            struct timespec t0;
+            if (reject_ns) clock_gettime(CLOCK_MONOTONIC, &t0);
+            if (stat && (code == CODE_LOWQ || code == CODE_NOFP
+                         || code == CODE_NORP)) {
+                if (sidlen < 0) sidlen = (long) strlen(sid);
+                char q[400];
+                int q_len = code == CODE_LOWQ
+                    ? fmt_f6(q, exp(quality[b])) : 0;
+                if (end - w < 9 + sidlen + 1 + q_len + 3 + thr_len + 1)
+                    return -1;
+                memcpy(w, code == CODE_LOWQ ? "ERR\tLOWQ\t"
+                       : code == CODE_NOFP ? "ERR\tNOFP\t" : "ERR\tNORP\t",
+                       9);
+                w += 9;
+                memcpy(w, sid, sidlen);
+                w += sidlen;
+                if (code == CODE_LOWQ) {
+                    *w++ = '\t';
+                    memcpy(w, q, q_len);
+                    w += q_len;
+                    memcpy(w, " < ", 3);
+                    w += 3;
+                    memcpy(w, thr, thr_len);
+                    w += thr_len;
+                }
+                *w++ = '\n';
+            }
+            if (reject_ns) {
+                struct timespec t1;
+                clock_gettime(CLOCK_MONOTONIC, &t1);
+                *reject_ns += (int64_t) (t1.tv_sec - t0.tv_sec)
+                    * 1000000000 + (t1.tv_nsec - t0.tv_nsec);
+            }
+        }
+        if ((done + b + 1) % 1000 == 0) marks[nm++] = w - out;
+    }
+    *n_marks = nm;
+    return w - out;
+}
+
 }  // extern "C"

@@ -35,7 +35,7 @@ COUNTERS = {"pairs", "batches", "device_steps", "overflow_reroutes",
             "host_steals", "offload_batches", "offload_groups",
             "fixup_rows", "fixup_rows_n", "fixup_rows_over",
             "ring_slots_new", "h2d_bytes", "d2h_bytes",
-            "early_finalize_batches"}
+            "early_finalize_batches", "log_rows_native"}
 # counted in traced batches only: the SLOW rows' scans, read-through and
 # the CLI's reject path
 TRACED_ONLY = ("slow_rows", "slow_scan_ns", "readthrough_pairs",
