@@ -59,9 +59,8 @@ phase is caught.
      kernel against its twin.
 3. The port CLI end to end against the native host engine
    (PANDASEQ_TPU_ENGINE=host). The cuda runs are the run a user types:
-   neither PANDASEQ_TPU_ENGINE nor PANDASEQ_TPU_HYBRID is set, so each
-   must log INFO ENGINE "cuda (default)" (no probe) and, the host steal
-   being opt-in, steal no batch: FASTA byte-identical and non-empty, the
+   PANDASEQ_TPU_ENGINE is not set, so each must log INFO ENGINE "cuda
+   (default)" (no probe): FASTA byte-identical and non-empty, the
    STAT/log line sequence equal, and every kernel of the run's path
    launched once per dispatched batch and every other kernel never (the
    defaults: cand_join alone; -k 0: counts and shortlist):
@@ -113,31 +112,16 @@ phase is caught.
    on localhost, claiming the stream's batches round-robin; the union of
    their part files' records equals the one-process run's, and the
    reduced counter vectors (and overlap histograms) are equal. No engine
-   or steal setting is pinned, so the default holds: each process
+   is pinned, so the default holds: each process
    launches cand_join once per dispatch group of its batches and no
    other kernel.
-6. Lanes and tools, each through the entry point a user calls:
-   - the hybrid host steal (opt-in): emit_stream on the 500,000 pairs on
-     the card (the default engine) with PANDASEQ_TPU_HYBRID in turns 0,
-     force, adaptive, adaptive, force, 0: FASTA byte-identical to
-     phase 3's and STAT equal to the host engine's; over the 62 batches
-     "0" launches cand_join 62 times and steals none, "force" launches
-     nothing and steals 62, adaptive launches and steals 62 in all; -k 0
-     with "force" steals nothing and launches counts and shortlist 62
-     times each. Then the steal's A/B at run_distributed's group 4 and
-     depth 6: 0, adaptive, adaptive, 0, twice, each byte-identical, with
-     cand_join launched once per group that is not stolen. Pairs/s of
-     each run beside the card's line;
-   - the device offload: the host engine with PANDASEQ_TPU_OFFLOAD=1
-     (which the card passes by its device type) in turns 0, 1, 1, 0:
-     byte-identical, groups offloaded (a lane timeout raises), cand_join
-     launched once per offloaded group and nothing else; pairs/s;
-   - the tools: pandaseq-tpu-torch-diff (-- -- -t 0.9, and -- -A pear --
-     -A rdp_mle) on 10,000 pairs with the default engine (cand_join
-     launched in both passes) and the host engine: equal report and exit
-     status; pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, the
-     default engine against host: FASTA and STAT equal, non-empty;
-     pandaseq-tpu-torch-checkid on one header.
+6. The tools, each through the entry point a user calls:
+   pandaseq-tpu-torch-diff (-- -- -t 0.9, and -- -A pear -- -A rdp_mle)
+   on 10,000 pairs with the default engine (cand_join launched in both
+   passes) and the host engine: equal report and exit status;
+   pandaseq-tpu-torch-hang -P/-Q on 50,000 primed pairs, the default
+   engine against host: FASTA and STAT equal, non-empty;
+   pandaseq-tpu-torch-checkid on one header.
 7. The library entry point, pandaseq_tpu_torch.Assembler() with no
    device argument (the card is the default device), and the CLI's
    result-object path, each on the card's default engine against the
@@ -209,6 +193,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 B = 8192  # phase 2's batch: the CLI's default (cli/main.py)
 CLI_BATCH = 8192  # the CLI's default batch: one dispatch per batch
+CLI_DEPTH = 10  # the CLI's PANDASEQ_TPU_DEPTH default
 E2E_PAIRS = 500000
 ALGO_PAIRS = 50000
 DIFF_PAIRS = 10000  # pandaseq-tpu-torch-diff holds every pair in memory
@@ -1068,7 +1053,7 @@ def _norm_log(path):
 
 def run_cli(f1, f2, out_dir, engine, tag, extra=()):
     """The port CLI on one engine: "cuda" is the default a user gets (no
-    engine or steal variable set), "host" pins the native host engine
+    engine variable set), "host" pins the native host engine
     and "auto" asks the probe; returns (seconds, reads, launch counts,
     fasta path, log lines, INFO ENGINE line). The launch counts are set
     to 0 just before the run and read just after it."""
@@ -1077,9 +1062,7 @@ def run_cli(f1, f2, out_dir, engine, tag, extra=()):
 
     fa = os.path.join(out_dir, tag + ".fa")
     log = os.path.join(out_dir, tag + ".log")
-    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_HYBRID",
-                 "PANDASEQ_TPU_OFFLOAD"):
-        os.environ.pop(name, None)
+    os.environ.pop("PANDASEQ_TPU_HOST", None)
     _env("PANDASEQ_TPU_ENGINE", None if engine == "cuda" else engine)
     cand.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1307,7 +1290,6 @@ def phase_installed(card, f1, f2, fasta):
         before = _tree(site)
         env = {k: v for k, v in os.environ.items()
                if k not in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST",
-                            "PANDASEQ_TPU_HYBRID", "PANDASEQ_TPU_OFFLOAD",
                             "PANDASEQ_TPU_CACHE")}
         env.update(PYTHONPATH=site, HOME=home, PYTHONDONTWRITEBYTECODE="1",
                    PANDASEQ_TORCH_DEVICE=DEVICE)
@@ -1368,27 +1350,23 @@ def phase_installed(card, f1, f2, fasta):
         shutil.rmtree(top, ignore_errors=True)
 
 
-def emit_run(asm, f1, f2, out_path, group=1, depth=10):
+def emit_run(asm, f1, f2, out_path):
     """The CLI's byte path driven from the library: emit_stream over the
     native reader with the _pre stage on the prefetch thread, at the
-    CLI's batch, ring and depth (and dispatch group), unless ``group``
-    and ``depth`` say otherwise. Returns (seconds, batch sizes, STAT
-    counters)."""
+    CLI's batch, ring, depth and dispatch group. Returns (seconds, batch
+    sizes, STAT counters)."""
     from pandaseq_tpu_torch.cli.main import ring_slots
     from pandaseq_tpu_torch.io import native
     from pandaseq_tpu_torch.io.prefetch import prefetch
 
-    # the CLI's ring, or run_distributed's for a grouped run
-    ring = ring_slots(depth, group) if group == 1 \
-        else 2 * depth + group + 16
     reader = native.NativeBatchReader(f1, f2, batch=CLI_BATCH, L=512,
-                                      ring=ring)
+                                      ring=ring_slots(CLI_DEPTH, 1))
     sizes = []
     t0 = time.perf_counter()
     with open(out_path, "wb") as out:
         for _, codes, payload in asm.emit_stream(
-                prefetch(asm.pre_stream(reader)), fmt="fasta", depth=depth,
-                threaded=True, group=group):
+                prefetch(asm.pre_stream(reader)), fmt="fasta",
+                depth=CLI_DEPTH, threaded=True):
             out.write(payload)
             sizes.append(len(codes))
     dt = time.perf_counter() - t0
@@ -1492,8 +1470,7 @@ def lut_mesh_step(mesh, batch, luts):
 def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     """Phase 4: the mesh engine on one card against the CLI runs of
     phase 3 and the host engine; then the LUT library path on the mesh.
-    Returns the LUT path's launch counts and the host engine's STAT
-    through emit_stream of each path."""
+    Returns the LUT path's launch counts."""
     from pandaseq_tpu_torch import oracle
     from pandaseq_tpu_torch.assembler import BatchAssembler
     from pandaseq_tpu_torch.ops import cand
@@ -1502,20 +1479,17 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
     sub = os.path.join(tmp, "mesh")
     os.makedirs(sub)
     out = os.path.join(sub, "run.fa")
-    # no engine or steal pin: the mesh itself pins the device engine,
+    # no engine pin: the mesh itself pins the device engine,
     # the single-device engine is the default
-    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST",
-                 "PANDASEQ_TPU_HYBRID"):
+    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST"):
         os.environ.pop(name, None)
     cuda0 = "%s:0" % DEVICE
-    host_stat = {}
     for path_name, k, path, meshes in (("sparse", 2, SPARSE, MESHES),
                                        ("dense", 0, DENSE, MESHES[:1])):
         label = "%d 2x250%s" % (E2E_PAIRS, " -k 0" if k == 0 else "")
         cfg = oracle.OracleConfig(num_kmers=k)
         dt_h, _, host_counters = emit_run(
             BatchAssembler(cfg, device=DEVICE, host_only=True), f1, f2, out)
-        host_stat[path_name] = host_counters
         if not filecmp.cmp(out, fasta[path_name], shallow=False):
             raise SystemExit("%s: host engine through emit_stream differs "
                              "from the CLI's FASTA" % label)
@@ -1561,7 +1535,7 @@ def phase_mesh(tmp, card, f1, f2, fasta, batch_256, luts):
                    split, E2E_PAIRS / dt, dt, card))
     os.remove(out)
     mesh = shard.make_mesh(devices=[cuda0] * 4, dp=2, op=2)
-    return lut_mesh_step(mesh, batch_256, luts), host_stat
+    return lut_mesh_step(mesh, batch_256, luts)
 
 
 def phase_distributed(tmp, card, f1, f2):
@@ -1572,15 +1546,14 @@ def phase_distributed(tmp, card, f1, f2):
     vectors and histograms to each other and exits nonzero otherwise.
     Nothing is pinned: the default engine serves every group of every
     process through cand_join, one launch per dispatch group, no other
-    kernel (the steal is opt-in)."""
+    kernel."""
     import inspect
 
     from pandaseq_tpu_torch.parallel import distributed
 
     sub = os.path.join(tmp, "scale")
     env = dict(os.environ)
-    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HYBRID",
-                 "PANDASEQ_TPU_HOST", "PANDASEQ_TPU_OFFLOAD"):
+    for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_HOST"):
         env.pop(name, None)
     group = inspect.signature(
         distributed.run_distributed).parameters["group"].default
@@ -1638,132 +1611,6 @@ def _env(name, value):
         os.environ.pop(name, None)
     else:
         os.environ[name] = value
-
-
-def phase_lanes(tmp, card, f1, f2, fasta, host_stat):
-    """Phase 6, the engine's lanes on the 500,000 pairs through
-    emit_stream: the hybrid host steal (device engine) in turns 0, force,
-    adaptive, adaptive, force, 0 and -k 0 forced at the CLI's group 1 and
-    depth 10; the steal's A/B at run_distributed's group 4 and depth 6 in
-    turns 0, adaptive, adaptive, 0, twice; the device offload (host
-    engine) in turns 0, 1, 1, 0. Each run's FASTA equals phase 3's and
-    its STAT the host engine's; the launches and the lanes' counts are
-    held to what each setting implies."""
-    import inspect
-
-    from pandaseq_tpu_torch import oracle
-    from pandaseq_tpu_torch.assembler import BatchAssembler
-    from pandaseq_tpu_torch.ops import cand
-    from pandaseq_tpu_torch.parallel import distributed
-
-    out = os.path.join(tmp, "lanes.fa")
-    n_batches = math.ceil(E2E_PAIRS / CLI_BATCH)
-    none = dict.fromkeys(KERNELS, 0)
-
-    def run(label, cfg, path_name, group=1, depth=10):
-        asm = BatchAssembler(cfg, device=DEVICE)
-        cand.reset_launch_counts()
-        dt, sizes, counters = emit_run(asm, f1, f2, out, group, depth)
-        launched = cand.launch_counts()
-        if len(sizes) != n_batches:
-            raise SystemExit("%s: %d batches, expected %d"
-                             % (label, len(sizes), n_batches))
-        if not filecmp.cmp(out, fasta[path_name], shallow=False):
-            raise SystemExit("%s: FASTA differs from phase 3's" % label)
-        if counters != host_stat[path_name]:
-            raise SystemExit("%s: STAT %s, host engine %s" % (
-                label, counters[:8], host_stat[path_name][:8]))
-        return asm, dt, launched
-
-    _env("PANDASEQ_TPU_OFFLOAD", None)
-    _env("PANDASEQ_TPU_ENGINE", None)  # the default: the device engine
-    rates = {}
-    for hyb in ("0", "force", "adaptive", "adaptive", "force", "0"):
-        _env("PANDASEQ_TPU_HYBRID", hyb)
-        label = "%d 2x250 steal %s" % (E2E_PAIRS, hyb)
-        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse")
-        steals = asm._host_steals
-        if hyb == "0":
-            ok = steals == 0 and launched == dict(none, cand_join=n_batches)
-        elif hyb == "force":
-            ok = steals == n_batches and launched == none
-        else:
-            ok = (launched == dict(none, cand_join=launched["cand_join"])
-                  and launched["cand_join"] + steals == n_batches)
-        if not ok:
-            raise SystemExit("%s: launched %s, %d batches stolen"
-                             % (label, launched, steals))
-        rates.setdefault(hyb, []).append(dt)
-        say("%s: FASTA == phase 3's, STAT == the host engine's; cand_join "
-            "%d launches, %d batches stolen; %.1f pairs/s (%.3f s) on %s"
-            % (label, launched["cand_join"], steals, E2E_PAIRS / dt, dt,
-               card))
-    # the steal's A/B where its gate can fire (depth 3 and more):
-    # run_distributed's group and depth; one cand_join launch per group
-    # that is not stolen
-    params = inspect.signature(distributed.run_distributed).parameters
-    group, depth = params["group"].default, params["depth"].default
-    n_groups = math.ceil(n_batches / group)
-    for hyb in ("0", "adaptive", "adaptive", "0") * 2:
-        name = "%s group %d" % (hyb, group)
-        _env("PANDASEQ_TPU_HYBRID", hyb)
-        label = "%d 2x250 steal %s depth %d" % (E2E_PAIRS, name, depth)
-        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse",
-                                group, depth)
-        steals = asm._host_steals
-        # only the last group may hold fewer than ``group`` batches
-        if launched != dict(none, cand_join=launched["cand_join"]) or (
-                launched["cand_join"] + math.ceil(steals / group)
-                != n_groups) or (hyb == "0" and steals):
-            raise SystemExit("%s: launched %s, %d batches stolen"
-                             % (label, launched, steals))
-        rates.setdefault(name, []).append(dt)
-        say("%s: FASTA == phase 3's, STAT == the host engine's; cand_join "
-            "%d launches for %d groups, %d batches stolen; %.1f pairs/s "
-            "(%.3f s) on %s" % (label, launched["cand_join"], n_groups,
-                                steals, E2E_PAIRS / dt, dt, card))
-
-    _env("PANDASEQ_TPU_HYBRID", "force")
-    label = "%d 2x250 -k 0 steal force" % E2E_PAIRS
-    asm, dt, launched = run(label, oracle.OracleConfig(num_kmers=0), "dense")
-    if asm._host_steals or launched != dict(none, counts=n_batches,
-                                            shortlist=n_batches):
-        raise SystemExit("%s: launched %s, %d batches stolen"
-                         % (label, launched, asm._host_steals))
-    say("%s: FASTA == phase 3's, no batch stolen, counts and shortlist %d "
-        "launches each; %.1f pairs/s (%.3f s) on %s"
-        % (label, n_batches, E2E_PAIRS / dt, dt, card))
-
-    _env("PANDASEQ_TPU_HYBRID", None)
-    os.environ["PANDASEQ_TPU_ENGINE"] = "host"
-    for off in ("0", "1", "1", "0"):
-        os.environ["PANDASEQ_TPU_OFFLOAD"] = off
-        label = "%d 2x250 host engine offload %s" % (E2E_PAIRS, off)
-        asm, dt, launched = run(label, oracle.OracleConfig(), "sparse")
-        if off == "1":
-            ok = (asm._offload_count > 0
-                  and launched == dict(none,
-                                       cand_join=asm._offload_groups))
-        else:
-            ok = asm._offload_count == 0 and launched == none
-        if not ok:
-            raise SystemExit("%s: launched %s, %d batches in %d groups "
-                             "offloaded" % (label, launched,
-                                            asm._offload_count,
-                                            asm._offload_groups))
-        rates.setdefault("offload " + off, []).append(dt)
-        say("%s: FASTA == phase 3's, STAT == the host engine's; %d batches "
-            "in %d groups offloaded (cand_join %d launches); "
-            "%.1f pairs/s (%.3f s) on %s"
-            % (label, asm._offload_count, asm._offload_groups,
-               launched["cand_join"], E2E_PAIRS / dt, dt, card))
-    _env("PANDASEQ_TPU_OFFLOAD", None)
-    say("lanes, pairs/s over the runs of each setting (total pairs over "
-        "total seconds) on %s: %s" % (card, ", ".join(
-            "%s %.1f (runs %s s)" % (k, E2E_PAIRS * len(t) / sum(t),
-                                     ", ".join("%.3f" % x for x in t))
-            for k, t in rates.items())))
-    os.remove(out)
 
 
 def phase_tools(tmp, card, diff_data, primed):
@@ -1897,8 +1744,7 @@ def library(engine, device=None):
     default, "host" pins the native host engine."""
     import pandaseq_tpu_torch
 
-    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_HYBRID",
-                 "PANDASEQ_TPU_OFFLOAD", "PANDASEQ_TPU_GROUP"):
+    for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_GROUP"):
         os.environ.pop(name, None)
     _env("PANDASEQ_TPU_ENGINE", "host" if engine == "host" else None)
     if device is None:
@@ -2247,10 +2093,8 @@ def main() -> int:
         counts, data, fasta = phase_e2e(tmp, card)
         big = data["big"]
         phase_installed(card, *big, fasta["sparse"])
-        counts["lut"], host_stat = phase_mesh(tmp, card, *big, fasta,
-                                              batch_256, luts)
+        counts["lut"] = phase_mesh(tmp, card, *big, fasta, batch_256, luts)
         phase_distributed(tmp, card, *big)
-        phase_lanes(tmp, card, *big, fasta, host_stat)
         primed = wait_data(tool_data["primed"])
         phase_tools(tmp, card, wait_data(tool_data["diff"]), primed)
         phase_library(tmp, card, data, primed, fasta["sparse"])

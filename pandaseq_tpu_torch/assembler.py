@@ -42,28 +42,20 @@ device seams written for PyTorch:
   and the measured probe (``runtime.pick_engine``) runs only under
   ``PANDASEQ_TPU_ENGINE=auto``.
 
-Grouped dispatch (``PANDASEQ_TPU_GROUP``, ``_dispatch_group``) is kept,
-and so are the threaded pipeline's two lanes of the JAX engine, both
-opt-in:
+Grouped dispatch (``PANDASEQ_TPU_GROUP``, ``_dispatch_group``) is kept:
+up to ``group`` consecutive batches of one shape bucket go to the
+resolved engine in one dispatch. The threaded pipeline has one route,
+that engine: it has neither of the JAX engine's two lanes (the host
+steal of device groups, the device offload of host groups). It departs
+from the JAX engine's in one more way: each batch's finalize goes to
+the worker at the batch's dispatch, not ``depth`` dispatches later, so
+decode + ``_pre``, dispatch + the consumer, and finalize run at once;
+``depth`` caps the batches not yet yielded.
 
-* the hybrid host steal (``PANDASEQ_TPU_HYBRID``: off unless set,
-  ``adaptive`` or ``1`` the JAX engine's adaptive gate, ``force``
-  always): a group of the device engine goes to the exact native twin
-  ``psq_cand_mask`` on one stealer thread when that thread is idle and
-  the finalizer is behind (``_HostStealer``, ``_dispatch_group_host``);
-  a stolen group launches no kernel;
-* the device offload (opt-in, ``PANDASEQ_TPU_OFFLOAD=1``; ``force``
-  also on a CPU device): with the host engine, up to ``CAP`` groups at a
-  time run the candidate-list step on the device from two lane threads
-  (``_DeviceOffload``). Unlike the JAX lane, nothing falls back to the
-  host: a lane job that raises (a kernel that does not build or launch,
-  a CUDA error), or a group whose result does not come back within the
-  lane's timeout, raises out of the pipeline.
-
-The threaded pipeline also departs from the JAX engine's: each batch's
-finalize goes to the worker at the batch's dispatch, not ``depth``
-dispatches later, so decode + ``_pre``, dispatch + the consumer, and
-finalize run at once; ``depth`` caps the batches not yet yielded.
+At ``-k >= 3`` every engine takes the host-only sparse path
+(``_sparse_host``): the reference's misindexed k-mer occupancy check
+(assembler.c:94-99), which only the native twin simulates, decides
+every row's candidate mask, so the device step would be thrown away.
 
 Pipeline per batch:
 
@@ -86,14 +78,9 @@ Counter names mirror the reference STAT block (pool.c:83-104).
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
-import queue
-import threading
-import time
-from concurrent.futures import Future, ThreadPoolExecutor
-from concurrent.futures import TimeoutError as FutureTimeout
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -378,194 +365,6 @@ class _SliceView:
         return out
 
 
-def _on_card(dev):
-    """Whether a dispatched batch's device result is still on its way:
-    its download's CUDA event not yet complete (a host result, a stolen
-    or offloaded one, or a fetched one never is)."""
-    if isinstance(dev, _SliceView):
-        dev = dev._shared.dev
-    ev = dev._event if isinstance(dev, _PendingList) else None
-    return ev is not None and not ev.query()
-
-
-class _FutureArray:
-    """Lazy stolen-batch result: np.asarray waits for the host-twin
-    worker (mirrors _SliceView's contract for device results)."""
-
-    __slots__ = ("_fut",)
-
-    def __init__(self, fut):
-        self._fut = fut
-
-    def __array__(self, dtype=None, copy=None):
-        out = self._fut.result()
-        if dtype is not None and out.dtype != dtype:
-            out = out.astype(dtype)
-        return out
-
-
-class _HostStealer:
-    """One-thread executor for work-stolen candidate-twin groups.
-    idle() is the steal gate: at most one stolen group is ever in
-    flight, so the twin's own (contention-inflated) service time
-    self-limits the steal rate — if the host cores are already saturated
-    by decode/finalize, the twin runs slow and steals become rare."""
-
-    def __init__(self):
-        self.ex = ThreadPoolExecutor(1)
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def idle(self):
-        # single-submitter invariant: submit() is only called from the
-        # dispatch thread, but take the lock anyway — the check is cold
-        # and the invariant stays explicit if a second submitter appears
-        with self._lock:
-            return self._n == 0
-
-    def submit(self, fn, *a):
-        with self._lock:
-            self._n += 1
-        fut = self.ex.submit(fn, *a)
-
-        def _done(_f):
-            with self._lock:
-                self._n -= 1
-        fut.add_done_callback(_done)
-        return fut
-
-    def shutdown(self):
-        self.ex.shutdown(wait=True)
-
-
-class _DeviceOffload:
-    """Opportunistic device offload for a HOST-engine pipeline — the
-    inverse of the hybrid host steal: when the host engine serves the
-    pipeline, the card sits idle while the host candidate search runs
-    on every row. Routing a bounded number of groups to the device's
-    candidate-list step (``cand_join`` on a card) removes that stage for
-    them; both engines produce bit-identical masks, so output is
-    unchanged (tests/test_torch_offload.py).
-
-    Stall safety: the lane runs on DAEMON threads (a wedged device call
-    can never hang process exit) and dispatch+fetch complete inside the
-    lane job, so the ordered finalize pipeline waits at most an adaptive
-    timeout (4x the EMA group latency) and then raises a TimeoutError
-    that names the group and the wait. A failure of the lane job
-    propagates as it is. No fallback hides a stalled or failing card."""
-
-    CAP = 2  # groups in flight on the device lane
-
-    def __init__(self, asm):
-        # hand-rolled daemon-thread lane, NOT ThreadPoolExecutor: TPE
-        # threads are non-daemon and joined at interpreter exit, so a
-        # wedged device call inside a lane job would hang process exit
-        self.asm = asm
-        self.q = queue.Queue()
-        self.outstanding = []
-        self.lat = None  # EMA seconds per completed group
-        self.count = 0  # batches offloaded
-        self.groups = 0  # groups offloaded (one device step each)
-        for _ in range(2):
-            threading.Thread(target=self._worker, daemon=True).start()
-
-    def _worker(self):
-        while True:
-            item = self.q.get()
-            if item is None:
-                return
-            fut, job = item
-            try:
-                fut.set_result(job())
-            except BaseException as e:  # surfaced at fut.result()
-                fut.set_exception(e)
-
-    def room(self):
-        self.outstanding = [f for f in self.outstanding
-                            if not f.done()]
-        return len(self.outstanding) < self.CAP
-
-    def timeout(self):
-        # generous before the first completion (the first dispatch may
-        # build the kernels); thereafter 4x the typical group round-trip
-        return max(2.0, 4.0 * self.lat) if self.lat is not None \
-            else 60.0
-
-    def submit_group(self, sts):
-        """One grouped device dispatch+fetch on the lane; returns one
-        _OffloadView per st. _sparse_plane runs HERE on the dispatch
-        thread so st mutation stays single-threaded."""
-        asm = self.asm
-        Lb, O = sts[0]["Lb"], sts[0]["O"]
-        planes, flens, rlens = [], [], []
-        for st in sts:
-            st["plane_kind"] = 1
-            st["cand_list"] = True
-            planes.append(asm._sparse_plane(st))
-            flens.append(st["batch"].flen)
-            rlens.append(st["batch"].rlen)
-        plane = np.concatenate(planes, axis=0)
-        fl = np.concatenate(flens)
-        rl = np.concatenate(rlens)
-        t0 = time.perf_counter()
-
-        def job():
-            arr = asm._offload_list(plane, fl, rl, Lb, O)
-            dt = time.perf_counter() - t0
-            self.lat = dt if self.lat is None \
-                else 0.7 * self.lat + 0.3 * dt
-            return arr
-
-        fut = Future()
-        self.q.put((fut, job))
-        self.outstanding.append(fut)
-        views = []
-        lo = 0
-        for st in sts:
-            views.append(_OffloadView(self, fut, self.groups, lo,
-                                      lo + st["B"]))
-            lo += st["B"]
-        self.count += len(sts)
-        self.groups += 1
-        return views
-
-    def shutdown(self):
-        for _ in range(2):
-            self.q.put(None)
-        self.asm._offload_count += self.count
-        self.asm._offload_groups += self.groups
-
-
-class _OffloadView:
-    """One batch's slice of an offloaded group. Waits up to the lane's
-    adaptive timeout for the device result, and raises a TimeoutError
-    naming the group and the wait when it does not come; an exception
-    of the lane job propagates as it is."""
-
-    __slots__ = ("_off", "_fut", "_group", "_lo", "_hi")
-
-    def __init__(self, off, fut, group, lo, hi):
-        self._off = off
-        self._fut = fut
-        self._group = group
-        self._lo = lo
-        self._hi = hi
-
-    def __array__(self, dtype=None, copy=None):
-        wait = self._off.timeout()
-        try:
-            out = self._fut.result(timeout=wait)[self._lo:self._hi]
-        except FutureTimeout:
-            if self._fut.done():
-                raise  # the job's own TimeoutError
-            raise TimeoutError(
-                "offload lane: group %d got no candidate list from the "
-                "device within %.1f s" % (self._group, wait)) from None
-        if dtype is not None and out.dtype != dtype:
-            out = out.astype(dtype)
-        return out
-
-
 class _BatchResults:
     """Columnar backing shared by one batch's NativeResult rows."""
 
@@ -840,9 +639,6 @@ class BatchAssembler:
         # way, so it keeps the list
         self._cand_list = not (os.environ.get("PANDASEQ_TPU_JOIN")
                                and self.device.type == "cpu")
-        self._host_steals = 0  # batches work-stolen to the host twin
-        self._offload_count = 0  # batches device-offloaded (host eng.)
-        self._offload_groups = 0  # device steps of the offload lane
         # device steps through _launch: one per batch, or one per
         # stacked group (_dispatch_group)
         self._device_dispatches = 0
@@ -851,8 +647,8 @@ class BatchAssembler:
         self._overflow_reroutes = 0
         self._batches = 0  # batches through _pre
         # device-step rows whose candidate mask the host recomputed in
-        # _finalize: hasN rows (or every row at num_kmers >= 3), and
-        # rows with more than CAND_LIST_C candidates
+        # _finalize: hasN rows, and rows with more than CAND_LIST_C
+        # candidates (num_kmers >= 3 takes no device step: _sparse_host)
         self._fixup_rows_n = 0
         self._fixup_rows_over = 0
         # counted only while tracing is on (_count_traced): SLOW rows,
@@ -872,9 +668,6 @@ class BatchAssembler:
         return {"pairs": self.counters.count, "batches": self._batches,
                 "device_steps": self._device_dispatches,
                 "overflow_reroutes": self._overflow_reroutes,
-                "host_steals": self._host_steals,
-                "offload_batches": self._offload_count,
-                "offload_groups": self._offload_groups,
                 "fixup_rows": self._fixup_rows_n + self._fixup_rows_over,
                 "fixup_rows_n": self._fixup_rows_n,
                 "fixup_rows_over": self._fixup_rows_over,
@@ -913,7 +706,7 @@ class BatchAssembler:
 
         cap = max(depth, 1)
         ex = ThreadPoolExecutor(1)
-        futs = deque()  # (finalize, dev) of the batches not yet yielded
+        futs = deque()  # finalizes of the batches not yet yielded
         submitted = [0]  # finalizes submitted since the last dispatch
 
         def dispatched():
@@ -922,55 +715,19 @@ class BatchAssembler:
             self._early_finalize += submitted[0]
             submitted[0] = 0
 
-        # hybrid work-steal, opt-in (PANDASEQ_TPU_HYBRID: unset or "0"
-        # off, "adaptive" or "1" the adaptive gate, "force" always
-        # steal): when the finalize worker is visibly behind and the
-        # twin worker is idle, the next group's candidate masks are
-        # computed by the exact native host twin instead of the device
-        hyb = os.environ.get("PANDASEQ_TPU_HYBRID", "0")
-        # the stealer thread is created lazily on the first steal so the
-        # common case (adaptive gate never fires) spawns no extra thread
-        stealer_box = [None]
-
-        def stealer():
-            if stealer_box[0] is None:
-                stealer_box[0] = _HostStealer()
-            return stealer_box[0]
-
-        def route():
-            if hyb == "force":
-                return True
-            if hyb not in ("adaptive", "1"):
-                return False
-            s = stealer_box[0]
-            if not futs or futs[0][0].done() or not (s is None
-                                                     or s.idle()):
-                return False
-            # visibly behind: the oldest finalize not done, and two or
-            # more whose batches are off the card (a batch still on it
-            # holds the worker back, not the worker's own pace)
-            return sum(not _on_card(d) for _, d in futs) >= 2
-
-        # host engine + idle device: opportunistic device offload (the
-        # inverse of the host steal; at most one of the two is active,
-        # keyed off the resolved engine)
-        offload = _DeviceOffload(self) if self._offload_enabled() \
-            else None
-
         def result():
             sp = tracing.begin("wait.finalize") if tracing.ON else None
-            r = futs.popleft()[0].result()
+            r = futs.popleft().result()
             if sp is not None:
                 tracing.end(sp)
             return r
 
         try:
             for st, dev in self._dispatch_stream(pair_batches, group,
-                                                 route, stealer,
-                                                 offload, dispatched):
-                futs.append((ex.submit(fin, st, dev), dev))
+                                                 dispatched):
+                futs.append(ex.submit(fin, st, dev))
                 submitted[0] += 1
-                while len(futs) >= cap or (futs and futs[0][0].done()):
+                while len(futs) >= cap or (futs and futs[0].done()):
                     yield result()
             if tracing.ON:
                 tracing.drain()
@@ -979,14 +736,10 @@ class BatchAssembler:
         finally:
             while futs:
                 try:
-                    futs.popleft()[0].result()
+                    futs.popleft().result()
                 except Exception:
                     pass
             ex.shutdown(wait=True)
-            if stealer_box[0] is not None:
-                stealer_box[0].shutdown()
-            if offload is not None:
-                offload.shutdown()
 
     def assemble_stream(self, pair_batches, depth: int = 4,
                         threaded: bool = False, group: int = 1):
@@ -1209,45 +962,28 @@ class BatchAssembler:
         analogue)."""
         return "host" if self._resolve_host_only() else self.device.type
 
-    def _offload_enabled(self) -> bool:
-        """Whether the threaded pipeline may offload candidate groups to
-        the device while the HOST engine serves the pipeline
-        (_DeviceOffload). Opt-in, as in the JAX package:
-        PANDASEQ_TPU_OFFLOAD=1 needs a CUDA device; =force also runs the
-        lane on a CPU device (the plain step, for tests). Also requires:
-        host engine, the native lib, a built-in algorithm, k-mer seeding
-        in the device step's exact range (num_kmers 1 or 2), no mesh."""
-        env = os.environ.get("PANDASEQ_TPU_OFFLOAD", "")
-        if env not in ("1", "force"):
-            return False
-        if (_native.get_lib() is None or self._custom
-                or self.mesh is not None
-                or self.cfg.num_kmers not in (1, 2)):
-            return False
-        if not self._resolve_host_only():
-            return False  # device engine already serves the pipeline
-        return env == "force" or self.device.type == "cuda"
-
     def _sparse_plane(self, st):
         """Host prep for the sparse path: 4-bit packed upload plane
         (2-bit k-mer codes only, 128 B/pair at Lb=256). The device
         assumes no Ns; rows flagged hasN get their masks recomputed
         exactly on host in _finalize (native psq_cand_mask).
-        num_kmers >= 3 routes EVERY row through the host's faithful
-        kmerseen simulation — the reference's misindexed occupancy
-        check (assembler.c:94-99) drops/overwrites k-mers in a pattern
-        the device's rank-based seeding cannot express."""
+        num_kmers >= 3 never gets here (_host_masks)."""
         sp = tracing.begin("pack", st.get("seq")) if tracing.ON else None
         plane, hasN = _native.pack4(st["batch"], st["Lb"])
-        if self.cfg.num_kmers >= 3:
-            st["hasN_rows"] = np.arange(st["B"], dtype=np.int64)
-            st["cand_faithful"] = True
-        else:
-            st["hasN_rows"] = np.flatnonzero(hasN)
+        st["hasN_rows"] = np.flatnonzero(hasN)
         st["fixup_n"] = len(st["hasN_rows"])
         if sp is not None:
             tracing.end(sp)
         return plane
+
+    def _host_masks(self) -> bool:
+        """Whether a sparse batch takes _sparse_host: on the host
+        engine, and at num_kmers >= 3 on every engine, where the
+        reference's misindexed occupancy check (assembler.c:94-99) drops
+        and overwrites k-mers in a pattern that only the native twin's
+        faithful kmerseen simulation reproduces, so a device step's
+        candidates would all be recomputed."""
+        return self._resolve_host_only() or self.cfg.num_kmers >= 3
 
     def _sparse_host(self, st):
         """Host-only sparse dispatch: no device — every row's candidate
@@ -1322,24 +1058,6 @@ class BatchAssembler:
             tracing.end(sp)
         return out
 
-    def _offload_list(self, plane, flen, rlen, Lb, O):
-        """The offload lane's job (on a lane thread): the candidate-list
-        step (``cand_join`` on a card, the plain step on the CPU) on
-        ``self.device`` with that device current, waiting on the
-        download's CUDA event; returns the [B, C+2] int16 list."""
-        arrays = [np.ascontiguousarray(plane, np.int8),
-                  np.ascontiguousarray(flen, np.int32),
-                  np.ascontiguousarray(rlen, np.int32)]
-
-        def step(*a):
-            return fused2.assemble_candidates_list_packed4(
-                *a, L=Lb, O=O, num_kmers=self.cfg.num_kmers)
-
-        with (torch.cuda.device(self.device) if self.device.type == "cuda"
-              else contextlib.nullcontext()):
-            out = _fetch(shard.run_dp(self._grid, step, arrays))
-        return np.asarray(out)
-
     def _overflow_host(self, st):
         """maxo exceeds the device plane width (explicit -O beyond the
         frame bucket with long reads): widen the candidate mask to
@@ -1357,10 +1075,11 @@ class BatchAssembler:
     def _dispatch(self, st):
         """Stage 1 (pandaseq_tpu/assembler.py:1213, with the mesh in the
         port's terms): the overflow reroute, then the host-only sparse
-        path, then the op-sharded step (``_dispatch_op``) where the mesh
-        has an op axis wider than 1, ``O % op == 0`` and ``B % dp ==
-        0``, else the single-device step (``_launch``). Returns a
-        _PendingList or a host array — never blocks on the device."""
+        path (the host engine, or num_kmers >= 3), then the op-sharded
+        step (``_dispatch_op``) where the mesh has an op axis wider than
+        1, ``O % op == 0`` and ``B % dp == 0``, else the single-device
+        step (``_launch``). Returns a _PendingList or a host array —
+        never blocks on the device."""
         batch = st["batch"]
         Lb = st["Lb"]
         if st["O_full"] > st["O"]:
@@ -1369,7 +1088,7 @@ class BatchAssembler:
         st["plane_kind"] = 1 if sparse else 0
         plane = None
         if sparse:
-            if self._resolve_host_only():
+            if self._host_masks():
                 return self._sparse_host(st)
             plane = self._sparse_plane(st)
         use_op = False
@@ -1402,7 +1121,7 @@ class BatchAssembler:
         if len(sts) == 1:
             return [self._dispatch(sts[0])]
         sparse, lut = self._sparse_mode()
-        if self.mesh is not None or (sparse and self._resolve_host_only()) \
+        if self.mesh is not None or (sparse and self._host_masks()) \
                 or any(st["O_full"] > st["O"] for st in sts):
             return [self._dispatch(st) for st in sts]
         key0 = (sts[0]["Lb"], sts[0]["O"])
@@ -1432,77 +1151,17 @@ class BatchAssembler:
             lo += st["B"]
         return views
 
-    def _host_route_ok(self, sts):
-        """Whether a group may be work-stolen to the host candidate
-        twin with bit-identical results: the sparse (candidate-mask)
-        path only — psq_cand_mask IS the exactness anchor those rows
-        already ride for hasN/overflow fixups. Mesh runs keep their
-        sharded dispatch; host-only runs are already all-host; k=0
-        stays on the device shortlist (the host scan is the
-        reference's own SLOW path)."""
-        if self.mesh is not None or not sts:
-            return False
-        if any(st["O_full"] > st["O"] for st in sts):
-            return False  # the widened-mask reroute handles these
-        sparse, _ = self._sparse_mode()
-        return (sparse and self.cfg.num_kmers >= 1
-                and not self._resolve_host_only())
-
-    def _offload_ok(self, sts):
-        """Group eligibility for the device-offload lane: sparse
-        candidate contract only (k in 1..2 — enforced at enable time),
-        no O-overflow reroutes, homogeneous bucket (guaranteed by the
-        flush-on-bucket-change rule)."""
-        return bool(sts) and not any(st["O_full"] > st["O"]
-                                     for st in sts)
-
-    def _dispatch_group_host(self, sts, stealer):
-        """Work-stolen group: every row's candidate mask from the
-        exact native twin (psq_cand_mask) on the stealer's thread —
-        no upload, no launch, no download. Reads the full nt planes (N
-        bases included), so no hasN fixup is needed; num_kmers >= 3
-        uses the faithful kmerseen simulation, same as the device
-        path's fixup rows."""
-        if not hasattr(stealer, "submit"):  # lazy factory from the
-            stealer = stealer()             # threaded pipeline
-        k = self.cfg.num_kmers
-        outs = []
-        for st in sts:
-            st["plane_kind"] = 1
-            st["cand_list"] = False
-            st["hasN_rows"] = np.zeros(0, dtype=np.int64)
-            st["cand_faithful"] = k >= 3
-            fut = stealer.submit(
-                _native.cand_mask, st["batch"],
-                np.arange(st["B"], dtype=np.int64), k, st["O"],
-                st["cand_faithful"])
-            outs.append(_FutureArray(fut))
-            self._host_steals += 1
-        return outs
-
     def _dispatch_stream(self, pair_batches, group: int = 1,
-                         route=None, stealer=None, offload=None,
                          dispatched=None):
         """(st, dev) pairs in input order, dispatching up to ``group``
-        consecutive same-bucket batches per device call. When ``route``
-        (the hybrid steal gate) fires and the group is eligible, the
-        whole group is computed by the host candidate twin instead;
-        with a host engine and an ``offload`` lane, eligible groups go
-        to the idle device while it has room. ``dispatched()`` is
-        called after each dispatch call."""
+        consecutive same-bucket batches per call of _dispatch_group.
+        ``dispatched()`` is called after each dispatch call."""
         pend = []
 
         def flush():
             sp = tracing.begin("dispatch", pend[0].get("seq"),
                                batches=len(pend)) if tracing.ON else None
-            if offload is not None and offload.room() \
-                    and self._offload_ok(pend):
-                devs = offload.submit_group(pend)
-            elif route is not None and route() \
-                    and self._host_route_ok(pend):
-                devs = self._dispatch_group_host(pend, stealer)
-            else:
-                devs = self._dispatch_group(pend)
+            devs = self._dispatch_group(pend)
             if sp is not None:
                 tracing.end(sp)
             if dispatched is not None:

@@ -28,7 +28,7 @@ from . import _build
 KERNELS = ("cand_join", "counts", "shortlist", "lut_sums")
 # launches of each kernel since the last reset_launch_counts()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
-# the engine's offload lane launches from its own threads
+# library callers may launch from several threads
 _COUNT_LOCK = threading.Lock()
 
 _MODES = {"list": 0, "mask": 1}

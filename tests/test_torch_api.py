@@ -80,7 +80,6 @@ def _cpu(monkeypatch):
     monkeypatch.setenv("PANDASEQ_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("PANDASEQ_TPU_HOST", "0")
     for name in ("PANDASEQ_TPU_ENGINE", "PANDASEQ_TPU_GROUP",
-                 "PANDASEQ_TPU_HYBRID", "PANDASEQ_TPU_OFFLOAD",
                  "PANDASEQ_TPU_JOIN"):
         monkeypatch.delenv(name, raising=False)
 

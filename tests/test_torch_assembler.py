@@ -3,7 +3,9 @@ the CPU against the JAX package's engine: the same emitted bytes and STAT
 counters for all seven built-in algorithms on the sparse path, for the
 five count-based ones at -k 0 and for a custom algorithm on the dense
 path, through the same host pipeline (and on a mesh: one case here, the
-rest in tests/test_torch_parallel.py)."""
+rest in tests/test_torch_parallel.py); the host engine against the JAX
+package's at -k 1 to 3; and -k 3 to 8, where no engine takes a device
+step."""
 
 import os
 import subprocess
@@ -48,14 +50,35 @@ def _jax_cfg(cfg):
     return out
 
 
-def _emit(asm, n=64, group=1, fmt="fasta", prefix=SYNTH):
+def _emit(asm, n=64, group=1, fmt="fasta", prefix=SYNTH, depth=2,
+          codes=False):
+    """The threaded emit_stream's payload and STAT counters (and, with
+    ``codes``, every pair's code name in input order)."""
     reader = native if isinstance(asm, BatchAssembler) else jax_native
-    payload = b"".join(p for _, _, p in asm.emit_stream(
-        _batches(n, prefix, reader), fmt=fmt, depth=2, threaded=True,
-        group=group))
+    out = list(asm.emit_stream(_batches(n, prefix, reader), fmt=fmt,
+                               depth=depth, threaded=True, group=group))
+    payload = b"".join(p for _, _, p in out)
     c = asm.counters
-    return payload, (c.count, c.ok, c.lowq, c.noalgn, c.badread, c.slow,
-                     dict(c.overlaps))
+    got = (payload, (c.count, c.ok, c.lowq, c.noalgn, c.badread, c.slow,
+                     dict(c.overlaps)))
+    if codes:
+        got += ([code for _, cs, _ in out for code, _ in cs],)
+    return got
+
+
+def _count_device_steps(monkeypatch):
+    """The list that counts the engine's device steps: single-device
+    launches (_launch) and op-sharded steps (_dispatch_op)."""
+    steps = []
+    for name in ("_launch", "_dispatch_op"):
+        real = getattr(BatchAssembler, name)
+
+        def counting(self, *a, _real=real, _name=name, **kw):
+            steps.append(_name)
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(BatchAssembler, name, counting)
+    return steps
 
 
 @pytest.fixture(autouse=True)
@@ -181,3 +204,55 @@ def test_overflow_reroute_equals_jax(tmp_path, name):
     want = _emit(JaxAssembler(_jax_cfg(cfg)), prefix=prefix)
     got = _emit(BatchAssembler(cfg, device="cpu"), prefix=prefix)
     assert want[0] and got == want
+
+
+@pytest.mark.parametrize("num_kmers", [1, 2, 3])
+@pytest.mark.parametrize("name", ALGORITHMS)
+def test_host_engine_equals_jax_host_engine(monkeypatch, name, num_kmers):
+    """The host engine (PANDASEQ_TPU_ENGINE=host: the native
+    psq_cand_mask twin computes every row's candidate mask) through the
+    threaded pipeline at group 2 and depth 4: the payload, codes and
+    counters of the JAX package's host engine, with no device step and
+    no kernel launched."""
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
+    cfg = oracle.OracleConfig(num_kmers=num_kmers)
+    cfg.algorithm = oracle.make_algorithm(name, None)
+    jasm = JaxAssembler(_jax_cfg(cfg))
+    want = _emit(jasm, group=2, depth=4, codes=True)
+    assert jasm._resolve_host_only()
+    steps = _count_device_steps(monkeypatch)
+    cand.reset_launch_counts()
+    asm = BatchAssembler(cfg, device="cpu")
+    got = _emit(asm, group=2, depth=4, codes=True)
+    assert asm.engine == "host"
+    assert want[0] and got == want
+    assert not steps
+    assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)
+    assert asm.engine_counters()["device_steps"] == 0
+
+
+@pytest.mark.parametrize("num_kmers", [3, 4, 5, 6, 7, 8])
+def test_k3_and_more_take_no_device_step(monkeypatch, num_kmers):
+    """-k 3 to 8: the reference's misindexed k-mer occupancy check makes
+    the native twin decide every row's candidate mask, so the device
+    engine (grouped or not) and a (dp, op) mesh dispatch nothing and
+    upload nothing, and give the bytes of the host engine and of the
+    JAX package."""
+    cfg = oracle.OracleConfig(num_kmers=num_kmers)
+    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
+    want = _emit(JaxAssembler(_jax_cfg(cfg)), group=2, codes=True)
+    host = _emit(BatchAssembler(cfg, device="cpu"), group=2, codes=True)
+    monkeypatch.delenv("PANDASEQ_TPU_ENGINE")
+    steps = _count_device_steps(monkeypatch)
+    cand.reset_launch_counts()
+    for group, mesh in ((1, None), (2, None),
+                        (1, shard.make_mesh(devices=["cpu"] * 4, op=2))):
+        asm = BatchAssembler(cfg, device="cpu", mesh=mesh)
+        assert asm.engine == "cpu"
+        got = _emit(asm, group=group, codes=True)
+        assert want[0] and got == host == want
+        counts = asm.engine_counters()
+        assert (counts["device_steps"], counts["fixup_rows_n"],
+                counts["h2d_bytes"]) == (0, 0, 0)
+    assert not steps
+    assert cand.launch_counts() == dict.fromkeys(cand.KERNELS, 0)

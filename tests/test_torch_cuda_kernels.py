@@ -8,8 +8,7 @@ on the edge rows of tests/lut_rows.py), over the full plane and over the
 row blocks of the op-sharded steps, the mesh's steps with one sort-join
 per dp row, and the engine on the card equal to the engine
 on the CPU, on the sparse path and the dense -k 0 path, on one device
-and on a (dp=2, op=2) mesh of one card, and through the host-steal and
-device-offload lanes; on a machine with several cards,
+and on a (dp=2, op=2) mesh of one card; on a machine with several cards,
 also on a named card other than the current device and on meshes across
 the cards. Every test is marked ``cuda``
 and skips where ``torch.cuda.is_available()`` is False; on a machine
@@ -139,44 +138,6 @@ def test_engine_on_card_equals_cpu(dev, monkeypatch):
         assert cand.launch_counts() == dict(
             dict.fromkeys(cand.KERNELS, 0), cand_join=launches)
     assert out["cpu", 1] and len(set(out.values())) == 1
-
-
-def _synth_emit(asm, batch=64):
-    reader = native.NativeBatchReader(os.path.join(DATA, "synth_1.fastq"),
-                                      os.path.join(DATA, "synth_2.fastq"),
-                                      batch=batch, L=512)
-    return b"".join(p for _, _, p in asm.emit_stream(reader, depth=2,
-                                                     threaded=True))
-
-
-def test_lanes_on_card_equal_cpu(dev, monkeypatch):
-    """The engine's two lanes on the card over the 200 synth pairs (4
-    batches): a forced host steal launches no kernel; the offload lane
-    (host engine, PANDASEQ_TPU_OFFLOAD=1, which a CUDA device passes by
-    its type) launches cand_join once per offloaded group. Both give the
-    CPU engine's bytes."""
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")
-    want = _synth_emit(BatchAssembler(device="cpu"))
-    assert want
-    kernels = dict.fromkeys(cand.KERNELS, 0)
-
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "force")
-    cand.reset_launch_counts()
-    asm = BatchAssembler(device="cuda")
-    assert _synth_emit(asm) == want
-    assert asm._host_steals == 4 and cand.launch_counts() == kernels
-
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")
-    monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "host")
-    monkeypatch.setenv("PANDASEQ_TPU_OFFLOAD", "1")
-    cand.reset_launch_counts()
-    asm = BatchAssembler(device="cuda")
-    assert asm._offload_enabled()
-    assert _synth_emit(asm) == want
-    assert asm._offload_count > 0
-    assert cand.launch_counts() == dict(kernels,
-                                        cand_join=asm._offload_groups)
 
 
 def _nt_planes(rng, B, L):

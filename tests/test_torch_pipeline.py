@@ -3,7 +3,9 @@ the CPU, the plain device step under PANDASEQ_TORCH_DEVICE=cpu: the
 threaded and unthreaded streams give the same results in the same
 order at depths 1, 4 and 10 over jobs of 1, 2, 11 and 25 batches; each
 batch's finalize goes to the worker before the next batch is
-dispatched; a consumer that stops early still has every dispatched
+dispatched; behind a slow finalizer, with the downloads complete or
+held until the worker waits on them, every group is launched once and
+the bytes stay; a consumer that stops early still has every dispatched
 batch finalized; and the CLI's decode ring (cli/main.py ring_slots)
 never trips _check_ring, while one slot fewer does, threaded or not."""
 
@@ -40,7 +42,6 @@ DEPTHS = [1, 4, 10]
 def _port_on_cpu(monkeypatch):
     monkeypatch.setenv("PANDASEQ_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")  # the device step
-    monkeypatch.setenv("PANDASEQ_TPU_HYBRID", "0")
     for k in ("PANDASEQ_TPU_DEPTH", "PANDASEQ_TPU_GROUP",
               "PANDASEQ_TPU_BATCH", "PANDASEQ_TPU_PROFILE"):
         monkeypatch.delenv(k, raising=False)
@@ -141,6 +142,54 @@ def test_finalize_goes_to_the_worker_at_dispatch(monkeypatch, depth,
         want += [size] + ["submit"] * size
     assert log == want
     assert asm.engine_counters()["early_finalize_batches"] == 25 - want[-2]
+
+
+class _HeldDownload:
+    """A download event that completes only when waited on: the batch
+    stays on the card until the worker reaches it."""
+
+    def __init__(self):
+        self.done = False
+
+    def synchronize(self):
+        self.done = True
+
+
+def _count_launches(monkeypatch, held):
+    """The list of the device step's launches, one download event each:
+    a _HeldDownload with ``held``, else None (done at once)."""
+    real = BatchAssembler._launch
+    launches = []
+
+    def counting(self, *a, **kw):
+        out = real(self, *a, **kw)
+        event = _HeldDownload() if held else None
+        launches.append(event)
+        return assembler._PendingList(out._host, event) if held else out
+
+    monkeypatch.setattr(BatchAssembler, "_launch", counting)
+    return launches
+
+
+@pytest.mark.parametrize("held", [False, True], ids=["done", "held"])
+@pytest.mark.parametrize("depth,group", [(1, 1), (2, 1), (3, 1), (4, 2),
+                                         (6, 4), (10, 1)],
+                         ids=["1", "2", "3", "4-2", "6-4", "10-1"])
+def test_slow_finalizer_keeps_the_bytes(monkeypatch, depth, group, held):
+    """13 batches behind a finalizer 50 ms slower than the device step,
+    at the CLI's depth and group, run_distributed's and those between:
+    one launch a dispatch group, and the bytes and codes of the run
+    that is not slowed, whether each download is done at once or held
+    until the worker waits on it (and then every one is waited on)."""
+    want = _emit(16, depth, True, group)
+    launches = _count_launches(monkeypatch, held)
+    _slow_finalize(monkeypatch, 0.05)
+    got = _emit(16, depth, True, group)
+    assert len(got[0]) == 13 and want[0][0][2]
+    assert got == want
+    assert len(launches) == -(-13 // group)
+    if held:
+        assert all(event.done for event in launches)
 
 
 @pytest.mark.parametrize("depth", DEPTHS)

@@ -121,7 +121,6 @@ def _engine_tpu(monkeypatch):
     monkeypatch.setenv("PANDASEQ_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("PANDASEQ_TPU_ENGINE", "tpu")
     for name in ("PANDASEQ_TPU_HOST", "PANDASEQ_TPU_GROUP",
-                 "PANDASEQ_TPU_HYBRID", "PANDASEQ_TPU_OFFLOAD",
                  "PANDASEQ_TPU_JOIN"):
         monkeypatch.delenv(name, raising=False)
 

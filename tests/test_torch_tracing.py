@@ -32,7 +32,6 @@ DEVICE = {"pack", "launch", "wait.device", "fixup"}
 ENGINES = {"host": JOB, "tpu": JOB | DEVICE}
 FWD, REV = "GTGCCAGCMGCCGCGGTAA", "GGACTACHVGGGTWTCTAAT"  # 515F, 806R
 COUNTERS = {"pairs", "batches", "device_steps", "overflow_reroutes",
-            "host_steals", "offload_batches", "offload_groups",
             "fixup_rows", "fixup_rows_n", "fixup_rows_over",
             "ring_slots_new", "h2d_bytes", "d2h_bytes",
             "early_finalize_batches", "log_rows_native"}
